@@ -5,11 +5,13 @@ which stays in the repository); imports ``torch`` and never ``jax``.
 
 Layout:
   config    — typed dataclass config + YAML overlay + CLI (copy of acr_tpu.config)
-  io        — flax-path checkpoints -> state dicts, seeded init, result writer
+  io        — flax-path checkpoints -> state dicts, seeded init, writers
   models    — HRNet backbone, ACR heads and part module, MANO
   ops       — rotation math
   parser    — center-map decoding, parameter sampling, cross-hand prior
-  pipeline  — preprocessing, inference chain, projection, image-mode app
+  pipeline  — preprocessing, inference chain, projection, OneEuro filter,
+              capture, streaming loop, the app's four demo modes
+  utils     — meters and stage timers (copy of acr_tpu.utils.meters)
   viz       — rasterizer (CUDA kernels in csrc/raster.cu) and compositing
 """
 

@@ -1,7 +1,8 @@
-"""CLI entry point: ``python -m acr_tpu_torch.cli --demo_mode image --inputs img.jpg --output_dir out/``.
+"""CLI entry point: ``python -m acr_tpu_torch.cli --demo_mode image|folder|video|webcam ...``.
 
-The flags of ``acr_tpu.cli`` (same ``Config``); ``--device`` picks the
-torch device (default ``cuda`` when a card is present, else ``cpu``).
+The flags of ``acr_tpu.cli`` (same ``Config``), plus ``--device``: the
+torch device, ``cuda`` by default. Without a CUDA card the CLI raises;
+the plain PyTorch versions run on the CPU only with ``--device cpu``.
 Option values the port does not run yet raise NotImplementedError.
 """
 
@@ -17,11 +18,16 @@ def main(argv=None):
     from acr_tpu_torch.config import parse_args
     from acr_tpu_torch.pipeline.app import ACRApp
     argv = list(sys.argv[1:] if argv is None else argv)
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = "cuda"
     if "--device" in argv:
         i = argv.index("--device")
         device = argv[i + 1]
         del argv[i:i + 2]
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {device}: no CUDA card is visible "
+            "(torch.cuda.is_available() is False); pass --device cpu to run "
+            "the plain PyTorch versions on the CPU")
     cfg = parse_args(argv)
     logging.info("config: %s (device %s)", cfg, device)
     return ACRApp(cfg, device=device).run()

@@ -40,7 +40,6 @@ def check_slice(cfg: Config) -> None:
     (``s2d_*``, ``merged_heads``) are not options here: the port builds
     the canonical network whatever they say."""
     unported = [
-        (cfg.temporal_optimization, "-t (OneEuro smoothing): ROADMAP A8"),
         (cfg.model_precision != "fp32",
          f"model_precision={cfg.model_precision!r}: ROADMAP A6 (bf16)"),
         (cfg.quantize != "none", f"quantize={cfg.quantize!r}: ROADMAP A13"),
@@ -49,16 +48,13 @@ def check_slice(cfg: Config) -> None:
         (cfg.renderer == "native", "renderer='native': ROADMAP A15"),
         (cfg.use_pallas_mano == "on",
          "use_pallas_mano='on' (fused MANO kernel B4): ROADMAP A12"),
-        (cfg.demo_mode != "image",
-         f"demo_mode={cfg.demo_mode!r}: ROADMAP A9"),
-        (cfg.renderer != "none" and cfg.save_visualization_on_img
-         and cfg.render_size >= 1024,
-         f"render_size={cfg.render_size} (banded kernel B3): ROADMAP A11"),
+        (cfg.demo_mode in ("video", "folder") and cfg.val_batch_size > 1,
+         f"val_batch_size={cfg.val_batch_size} in {cfg.demo_mode} mode "
+         "(the chunk step, _run_batched): ROADMAP A9b"),
         (bool(set(cfg.show_items) - {"mesh"}),
          f"show_items={cfg.show_items!r} (aux views): ROADMAP A10"),
         (not cfg.jit_translation_solve,
          "jit_translation_solve=False (native host solve): ROADMAP A15"),
-        (cfg.interactive_vis, "interactive_vis: ROADMAP A9"),
         (cfg.profile_dir is not None, "profile_dir: ROADMAP A15"),
     ]
     for hit, what in unported:
@@ -94,6 +90,17 @@ def _mano_projection_tail(mano_l, mano_r, poses, betas, cam, offsets,
         "pj2d": pj2d, "pj2d_org": kp2d_to_org_image(pj2d, offsets[:, None, :]),
         "cam_trans": cam_trans,
     }
+
+
+def mano_refine_fn(mano_l, mano_r, poses: torch.Tensor, betas: torch.Tensor,
+                   cam: torch.Tensor, offsets: torch.Tensor, cfg: Config
+                   ) -> Dict[str, torch.Tensor]:
+    """MANO + projection only, for re-running after temporal smoothing.
+
+    poses (B,2,48), betas (B,2,10), cam (B,2,3), offsets (B,10).
+    """
+    return _mano_projection_tail(mano_l, mano_r, poses, betas, cam,
+                                 offsets, cfg)
 
 
 def forward_fn(net: ACRNet, mano_l, mano_r, image: torch.Tensor,
@@ -175,3 +182,12 @@ class ACRPipeline:
         return forward_fn(self.net, self.mano_l, self.mano_r, image, offsets,
                           self.cfg, return_maps=return_maps,
                           merge_params=self.merge_params)
+
+    @torch.no_grad()
+    def refine(self, poses, betas, cam, offsets) -> Dict[str, torch.Tensor]:
+        """``mano_refine_fn`` on the pipeline's device, without a sync."""
+        dev = self.device
+        return mano_refine_fn(
+            self.mano_l, self.mano_r, torch.as_tensor(poses).to(dev),
+            torch.as_tensor(betas).to(dev), torch.as_tensor(cam).to(dev),
+            torch.as_tensor(offsets, dtype=torch.float32).to(dev), self.cfg)

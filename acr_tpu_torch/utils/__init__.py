@@ -1,0 +1,1 @@
+"""acr_tpu_torch.utils (see the package docstring)."""

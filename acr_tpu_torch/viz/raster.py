@@ -8,11 +8,14 @@ reference's three 0.5-intensity lights along -z with 0.3 ambient reduce
 to one Lambert term on -normal_z.
 
 ``render_hands`` picks the rasterizer per frame like the JAX
-dispatch (``raster.py:414-432``): the smallest binned capacity tier
-(128/256/512 faces per tile) that holds the frame's fullest tile, and
-the exact flat kernel when a tile holds more. JAX decides on device with
-``lax.switch``; here the frame's max faces per tile is read once on the
-host, the render's only mid-step synchronisation.
+dispatch (``raster.py:385-432``). Below 1024 px: the smallest binned
+capacity tier (128/256/512 faces per tile) that holds the frame's
+fullest tile, and the exact flat kernel when a tile holds more. At 1024
+px and above: the banded kernel, unless a tile holds more than
+``BIN_CAP`` faces or a band more than ``BAND_CAP``, and then the flat
+kernel. JAX decides on device with ``lax.switch``; here the frame's
+maxima are read once on the host, the render's only mid-step
+synchronisation.
 """
 
 from __future__ import annotations
@@ -24,11 +27,16 @@ import torch
 
 from acr_tpu_torch.viz import raster_cuda
 from acr_tpu_torch.viz.raster_cuda import (
+    BAND_CAP,
+    BAND_H,
     BIN_CAP,
     FACE_CHUNK,
     N_ATTR,
     TIERS,
+    band_overflow_stats,
+    banded_overflow_stats,
     bin_overflow_stats,
+    rasterize_banded,
     rasterize_binned,
     rasterize_flat,
 )
@@ -127,11 +135,9 @@ def _scene_screen_faces(all_verts: torch.Tensor, detection_flag: torch.Tensor,
     return screen, all_faces, pad
 
 
-def _check_size(size: int) -> None:
-    if size >= 1024:
-        raise NotImplementedError(
-            f"render_size={size}: the banded kernel (B3) is not ported to "
-            "acr_tpu_torch yet (ROADMAP A11)")
+def _uses_bands(size: int, f_total: int) -> bool:
+    """The high-resolution dispatch: the banded kernel or flat."""
+    return size >= 1024 and f_total > FACE_CHUNK
 
 
 def render_overflow_probe(verts: torch.Tensor, cam_trans: torch.Tensor,
@@ -142,14 +148,18 @@ def render_overflow_probe(verts: torch.Tensor, cam_trans: torch.Tensor,
     """Rasterizer capacity telemetry for one frame: one (4,) int32 tensor
     [max_faces_per_tile, n_overflowing_tiles, max_faces_per_band,
     n_overflowing_bands]; the band fields are 0 below 1024 px."""
-    _check_size(size)
     all_verts = (verts + cam_trans[:, None, :]).reshape(-1, 3)
     screen, all_faces, _ = _scene_screen_faces(
         all_verts, detection_flag, faces, verts.shape[1], size, focal,
         camera, fov_deg)
     mx_t, n_t = bin_overflow_stats(screen, all_faces, size, size, cap=BIN_CAP)
-    zero = torch.zeros((), dtype=mx_t.dtype, device=mx_t.device)
-    return torch.stack([mx_t, n_t, zero, zero]).to(torch.int32)
+    f_total = all_faces.shape[0]
+    if _uses_bands(size, f_total):
+        mx_b, n_b = band_overflow_stats(screen, all_faces, size, band_h=BAND_H,
+                                        band_cap=min(BAND_CAP, f_total))
+    else:
+        mx_b = n_b = torch.zeros((), dtype=mx_t.dtype, device=mx_t.device)
+    return torch.stack([mx_t, n_t, mx_b, n_b]).to(torch.int32)
 
 
 def prepare_scene(verts: torch.Tensor, cam_trans: torch.Tensor,
@@ -190,15 +200,21 @@ def render_hands(verts: torch.Tensor, cam_trans: torch.Tensor,
     verts (2, 778, 3) root-relative; cam_trans (2, 3); detection_flag
     (2,) bool; faces (2, 1538, 3) integer. Undetected hands collapse to a
     degenerate vertex and are never rasterized. On CUDA tensors the
-    binned or flat kernel draws the frame; on CPU tensors their plain
-    versions do.
+    binned, banded or flat kernel draws the frame; on CPU tensors their
+    plain versions do.
     """
-    _check_size(size)
     screen, all_faces, attrs = prepare_scene(
         verts, cam_trans, detection_flag, faces, size, focal, camera, fov_deg)
-    tier = select_tier(screen, all_faces, size)
+    if _uses_bands(size, all_faces.shape[0]):
+        tier = "banded" if banded_fits(screen, all_faces, size) else None
+    else:
+        tier = select_tier(screen, all_faces, size)
     if tier is None:
         out = rasterize_flat(screen, all_faces, size, size, attrs=attrs)
+    elif tier == "banded":
+        out = rasterize_banded(screen, all_faces, size, size,
+                               band_cap=BAND_CAP, bin_cap=BIN_CAP,
+                               band_h=BAND_H, attrs=attrs)
     else:
         out = rasterize_binned(screen, all_faces, size, size, bin_cap=tier,
                                attrs=attrs)
@@ -219,3 +235,14 @@ def select_tier(screen: torch.Tensor, all_faces: torch.Tensor, size: int):
     max_faces = int(mx.item())
     idx = sum(max_faces > c for c in tiers)
     return tiers[idx] if idx < len(tiers) else None
+
+
+def banded_fits(screen: torch.Tensor, all_faces: torch.Tensor,
+                size: int) -> bool:
+    """Whether the banded kernel draws this frame exactly: no tile above
+    ``BIN_CAP`` faces and no band above ``min(BAND_CAP, F)`` (the gate
+    of ``raster.py:400-403``). One host read of the two maxima (a sync)."""
+    mx_t, mx_b = banded_overflow_stats(screen, all_faces, size, size,
+                                       band_h=BAND_H)
+    max_tile, max_band = torch.stack([mx_t, mx_b]).tolist()
+    return max_tile <= BIN_CAP and max_band <= min(BAND_CAP, all_faces.shape[0])

@@ -1,6 +1,6 @@
-"""The rasterizer's CUDA kernels, their plain PyTorch versions, and the prestage.
+"""The rasterizer's CUDA kernels, their plain PyTorch versions, and the prestages.
 
-Counterpart of ``acr_tpu/viz/raster_pallas.py`` for the 512 px path:
+Counterpart of ``acr_tpu/viz/raster_pallas.py``:
 
 * ``raster_flat`` launches ``raster_flat_kernel`` (``csrc/raster.cu``),
   the port of the Pallas ``_raster_kernel``: every face over every
@@ -12,7 +12,16 @@ Counterpart of ``acr_tpu/viz/raster_pallas.py`` for the 512 px path:
   the tile x face overlap keeps every tile's list in ascending face id,
   so the lowest-id tie rule holds and the binned kernel is bit-identical
   to the flat one while no tile exceeds ``cap``; above ``cap`` the
-  highest ids drop. ``bin_overflow_stats`` is the tier gate.
+  highest ids drop. ``bin_overflow_stats`` is the tier gate;
+* ``raster_banded`` launches ``raster_banded_kernel``, the port of
+  ``_raster_kernel_banded``, the path of every render at 1024 px and
+  above: ``bin_faces_banded`` gathers face rows once per 256-row band
+  into a table of ``band_cap`` columns and gives each tile only an
+  ascending list of int32 slots into its band's table; the kernel reads
+  the rows of each slot straight from the table. Bit-identical to the
+  flat kernel while no band holds more than ``band_cap`` faces and no
+  tile more than ``cap``; ``banded_overflow_stats`` is its gate and
+  ``band_overflow_stats`` the probe's band count.
 
 Each wrapper runs its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors, or raises; it never falls back.
@@ -40,11 +49,17 @@ ROW_TILE = 8
 FACE_CHUNK = 128      # faces padded to a multiple; plain versions fold chunks
 COL_TILE = 256
 BIN_CAP = 512
+BAND_H = 256          # banded kernel: rows per band
+BAND_CAP = 2048       # banded kernel: face-table columns per band
 N_ATTR = 16
 TIERS = (128, 256, 512)
+# rows of the (32, F) face table: 0..8 triangle, 9 inverse area, 10 global
+# face id as f32 (exact below 2^24), 16..31 attributes
+ROW_INV, ROW_GID, ROW_ATTR = 9, 10, 16
 
 # kernel launches since the last reset_launch_counts()
-LAUNCHES: Dict[str, int] = {"raster_flat": 0, "raster_binned": 0}
+LAUNCHES: Dict[str, int] = {"raster_flat": 0, "raster_binned": 0,
+                            "raster_banded": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
@@ -108,6 +123,9 @@ def _library():
             lib.acr_raster_binned.argtypes = [p, p, p, p, i, i, i, i,
                                               p, p, p, p, p]
             lib.acr_raster_binned.restype = i
+            lib.acr_raster_banded.argtypes = [p, p, p, i, i, i, i, i, i,
+                                              p, p, p, p, p]
+            lib.acr_raster_banded.restype = i
             _lib = lib
     return _lib
 
@@ -244,6 +262,12 @@ def raster_flat(tri: torch.Tensor, inv: torch.Tensor, attrs: torch.Tensor,
 # binned kernel (B1) and its prestage
 # ---------------------------------------------------------------------------
 
+def face_bboxes(tri_rows: torch.Tensor):
+    """(xmin, xmax, ymin, ymax), each (F,), of triangle rows (R, F)."""
+    xs, ys = tri_rows[[0, 3, 6]], tri_rows[[1, 4, 7]]
+    return xs.min(0).values, xs.max(0).values, ys.min(0).values, ys.max(0).values
+
+
 def _tile_overlap(tri_rows: torch.Tensor, inv_area: torch.Tensor,
                   height: int, width: int, col_tile: int) -> torch.Tensor:
     """(T, F) bool: live face f's bbox reaches tile t (8 x ``col_tile``
@@ -251,9 +275,7 @@ def _tile_overlap(tri_rows: torch.Tensor, inv_area: torch.Tensor,
     triangle; a face is live where ``inv_area != 0``."""
     dev = tri_rows.device
     n_ty, n_tx = height // ROW_TILE, width // col_tile
-    xs, ys = tri_rows[[0, 3, 6]], tri_rows[[1, 4, 7]]
-    xmin, xmax = xs.min(0).values, xs.max(0).values
-    ymin, ymax = ys.min(0).values, ys.max(0).values
+    xmin, xmax, ymin, ymax = face_bboxes(tri_rows)
     ty = torch.arange(n_ty, dtype=torch.float32, device=dev) * ROW_TILE
     tx = torch.arange(n_tx, dtype=torch.float32, device=dev) * col_tile
     # pixel centers in a tile span [t0 + 0.5, t0 + tile - 0.5]
@@ -387,7 +409,182 @@ def raster_binned(counts: torch.Tensor, tri_t: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# launchers: the counterparts of rasterize_pallas / rasterize_pallas_binned
+# banded kernel (B3) and its two-level prestage
+# ---------------------------------------------------------------------------
+
+def bin_faces_banded(full_rows: torch.Tensor, xmin: torch.Tensor,
+                     xmax: torch.Tensor, ymin: torch.Tensor,
+                     ymax: torch.Tensor, live: torch.Tensor, height: int,
+                     width: int, col_tile: int, band_h: int, band_cap: int,
+                     cap: int):
+    """Two-level binning prestage of the banded kernel
+    (``_bin_faces_banded``, output for output).
+
+    full_rows (R, F) face rows in the table layout (``ROW_INV``,
+    ``ROW_GID``, ``ROW_ATTR``); xmin/xmax/ymin/ymax/live (F,) face bboxes
+    and liveness.
+
+    Level 1: faces -> row bands of ``band_h`` px by y-bbox overlap; a
+    STABLE argsort of the band x face hit matrix gathers each band's
+    faces, in ascending id, into a table (n_bands, R, band_cap). Dead
+    columns get inverse area 0 (never win) and id -1.
+    Level 2: per (8 x ``col_tile``) tile, the slots of its band's table
+    whose bbox reaches the tile, as an ascending int32 list (T, 1, cap):
+    the keys are the slot ids, ``band_cap`` for a slot that does not
+    reach the tile, and a sort keeps the lowest ``cap`` (the only ties
+    are sentinels). Also returns tilenc (T,) int32, the live chunks of
+    128 slots per tile, and fetchnc (T,) int32, the chunks of the band
+    table up to the tile's highest slot (the TPU kernel's fetch bound).
+
+    A band (tile) above ``band_cap`` (``cap``) drops its highest ids.
+    """
+    dev = full_rows.device
+    n_bands = height // band_h
+    tpb_y = band_h // ROW_TILE
+    n_tx = width // col_tile
+    f32 = torch.float32
+    by = torch.arange(n_bands, dtype=f32, device=dev) * band_h
+    band_hit = ((ymin[None, :] <= by[:, None] + band_h)
+                & (ymax[None, :] >= by[:, None]) & live[None, :])
+    border = torch.argsort((~band_hit).to(torch.uint8), dim=1,
+                           stable=True)[:, :band_cap]          # (nb, band_cap)
+    bcounts = band_hit.sum(dim=1).clamp(max=band_cap)
+    bslot_live = (torch.arange(band_cap, device=dev)[None, :]
+                  < bcounts[:, None])
+    table = full_rows.T[border].transpose(1, 2).contiguous()   # (nb, R, band_cap)
+    table[:, ROW_INV] *= bslot_live.to(f32)
+    table[:, ROW_GID] = torch.where(bslot_live, table[:, ROW_GID],
+                                    torch.full((), -1.0, device=dev))
+
+    xmin_b, xmax_b = xmin[border], xmax[border]                # (nb, band_cap)
+    ymin_b, ymax_b = ymin[border], ymax[border]
+    ty = by[:, None] + torch.arange(tpb_y, dtype=f32, device=dev)[None, :] \
+        * ROW_TILE
+    y_hit = ((ymin_b[:, None, :] <= ty[..., None] + ROW_TILE)
+             & (ymax_b[:, None, :] >= ty[..., None]))          # (nb, ty, cap)
+    tx = torch.arange(n_tx, dtype=f32, device=dev) * col_tile
+    x_hit = ((xmin_b[:, None, :] <= tx[None, :, None] + col_tile)
+             & (xmax_b[:, None, :] >= tx[None, :, None]))      # (nb, tx, cap)
+    ov = (y_hit[:, :, None, :] & x_hit[:, None, :, :]
+          & bslot_live[:, None, None, :]).reshape(-1, band_cap)
+    keys = torch.where(
+        ov, torch.arange(band_cap, dtype=torch.int32, device=dev)[None, :],
+        torch.full((), band_cap, dtype=torch.int32, device=dev))
+    ids_t = torch.sort(keys, dim=1).values[:, :cap].contiguous()
+    counts_t = ov.sum(dim=1).clamp(max=cap).to(torch.int32)
+    tilenc = torch.div(counts_t + FACE_CHUNK - 1, FACE_CHUNK,
+                       rounding_mode="floor")
+    max_slot = ids_t.gather(1, (counts_t - 1).clamp(min=0).long()[:, None])[:, 0]
+    fetchnc = torch.where(counts_t > 0,
+                          torch.div(max_slot, FACE_CHUNK,
+                                    rounding_mode="floor") + 1,
+                          torch.zeros_like(max_slot))
+    return table, ids_t[:, None, :], tilenc, fetchnc
+
+
+def raster_banded_plain(table: torch.Tensor, ids_t: torch.Tensor,
+                        tilenc: torch.Tensor, fetchnc: torch.Tensor,
+                        height: int, width: int, col_tile: int, band_h: int):
+    """Plain PyTorch version of ``raster_banded`` (any device).
+
+    table (n_bands, 32, band_cap), ids_t (T, 1, cap) int32, tilenc and
+    fetchnc (T,) int32, as ``bin_faces_banded`` makes them. Each tile's
+    slots are gathered from its band's table and folded like the binned
+    plain version; the fold stops at the frame's fullest tile (one host
+    read of ``tilenc``), and a tile's sentinel slots fold with inverse
+    area 0, so they never win. Same outputs as ``raster_flat_plain``.
+    """
+    del fetchnc
+    dev = table.device
+    band_cap = table.shape[2]
+    n_tiles, _, cap = ids_t.shape
+    n_tx = width // col_tile
+    px = ROW_TILE * col_tile
+    tiles_per_band = (band_h // ROW_TILE) * n_tx
+    n_slots = min(int(tilenc.max()) * FACE_CHUNK, cap) if n_tiles else 0
+    lin = torch.arange(px, device=dev)
+    loc_x = (lin % col_tile).to(torch.float32)
+    loc_y = torch.div(lin, col_tile, rounding_mode="floor").to(torch.float32)
+    tiles = torch.arange(n_tiles, device=dev)
+    org_x = ((tiles % n_tx) * col_tile).to(torch.float32)
+    org_y = (torch.div(tiles, n_tx, rounding_mode="floor")
+             * ROW_TILE).to(torch.float32)
+    gx_all = (org_x[:, None] + loc_x[None]) + 0.5              # (T, px)
+    gy_all = (org_y[:, None] + loc_y[None]) + 0.5
+    band_of_tile = torch.div(tiles, tiles_per_band, rounding_mode="floor")
+    step = _pixel_budget(px)
+    fids, b0s, b1s, attrs = [], [], [], []
+    for t0 in range(0, n_tiles, step):
+        t1 = min(t0 + step, n_tiles)
+        tab = table[band_of_tile[t0:t1]]                       # (t, 32, band_cap)
+        slots = ids_t[t0:t1, 0, :n_slots]
+        live = slots < band_cap
+        col = slots.clamp(max=band_cap - 1).long()
+        rows = tab[:, :ROW_INV + 1].gather(
+            2, col[:, None, :].expand(-1, ROW_INV + 1, -1))   # (t, 10, n)
+        inv = torch.where(live, rows[:, ROW_INV], torch.zeros((), device=dev))
+        gx, gy = gx_all[t0:t1, :, None], gy_all[t0:t1, :, None]
+        shape = (t1 - t0, px)
+        carry = (torch.full(shape, float("inf"), device=dev),
+                 torch.full(shape, -1, dtype=torch.int32, device=dev),
+                 torch.zeros(shape, device=dev), torch.zeros(shape, device=dev))
+        for s0 in range(0, n_slots, FACE_CHUNK):
+            s1 = min(s0 + FACE_CHUNK, n_slots)
+            w0, w1, depth = _edge_fold(gx, gy, rows, inv, s0, s1)
+            carry = _fold_step(carry, w0, w1, depth, s0)
+        won = carry[1] >= 0                                    # (t, px)
+        # the winner's column in its band's table
+        win_col = (col.gather(1, carry[1].clamp(min=0).long()) if n_slots
+                   else torch.zeros(shape, dtype=torch.long, device=dev))
+        gid = tab[:, ROW_GID].gather(1, win_col).to(torch.int32)
+        fids.append(torch.where(won, gid, torch.full_like(gid, -1)))
+        picked = tab[:, ROW_ATTR:ROW_ATTR + N_ATTR].gather(
+            2, win_col[:, None, :].expand(-1, N_ATTR, -1))     # (t, 16, px)
+        attrs.append(torch.where(won[:, None, :], picked,
+                                 torch.zeros_like(picked)))
+        b0s.append(carry[2])
+        b1s.append(carry[3])
+    plane = lambda t: _tiles_to_planes(t, height, width, col_tile)
+    return (plane(torch.cat(fids)), plane(torch.cat(b0s)),
+            plane(torch.cat(b1s)), plane(torch.cat(attrs)))
+
+
+def raster_banded(table: torch.Tensor, ids_t: torch.Tensor,
+                  tilenc: torch.Tensor, fetchnc: torch.Tensor, height: int,
+                  width: int, col_tile: int, band_h: int):
+    """Banded z-buffer raster: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. Same arguments and outputs as
+    ``raster_banded_plain``."""
+    if table.device.type == "cpu":
+        return raster_banded_plain(table, ids_t, tilenc, fetchnc, height,
+                                   width, col_tile, band_h)
+    if table.device.type != "cuda":
+        raise ValueError(f"raster_banded: unsupported device {table.device}")
+    dev = table.device
+    n_bands, _, band_cap = table.shape
+    n_tiles, _, cap = ids_t.shape
+    if (height % band_h or band_h % ROW_TILE or width % col_tile
+            or n_bands != height // band_h
+            or n_tiles != (height // ROW_TILE) * (width // col_tile)):
+        raise ValueError(f"raster_banded: {n_bands} bands of {band_h} rows "
+                         f"and {n_tiles} tiles do not tile {height}x{width} "
+                         f"at 8x{col_tile}")
+    _check("table", table, torch.float32, (n_bands, 32, band_cap), dev)
+    _check("ids_t", ids_t, torch.int32, (n_tiles, 1, cap), dev)
+    _check("tilenc", tilenc, torch.int32, (n_tiles,), dev)
+    _check("fetchnc", fetchnc, torch.int32, (n_tiles,), dev)
+    fid, b0, b1, attr_planes = _outputs(height, width, dev)
+    lib = _library()
+    _launch(lib.acr_raster_banded, dev, tilenc.data_ptr(), table.data_ptr(),
+            ids_t.data_ptr(), band_cap, cap, band_h, height, width, col_tile,
+            fid.data_ptr(), b0.data_ptr(), b1.data_ptr(),
+            attr_planes.data_ptr())
+    LAUNCHES["raster_banded"] += 1
+    return fid, b0, b1, attr_planes
+
+
+# ---------------------------------------------------------------------------
+# launchers: the counterparts of rasterize_pallas{,_binned,_banded}
 # ---------------------------------------------------------------------------
 
 def face_rows(verts_screen: torch.Tensor, faces: torch.Tensor):
@@ -403,11 +600,18 @@ def face_rows(verts_screen: torch.Tensor, faces: torch.Tensor):
     return rows, inv
 
 
-def face_table(tri: torch.Tensor, attrs: torch.Tensor) -> torch.Tensor:
+def face_table(tri: torch.Tensor, attrs: torch.Tensor,
+               inv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(9, F) triangle rows + (16, F) attrs -> the (32, F) table that
-    ``bin_faces`` gathers (rows 0..8 triangle, 16..31 attrs): one binned
-    gather serves geometry and attributes."""
+    the prestages gather (rows 0..8 triangle, 16..31 attrs): one gather
+    serves geometry and attributes. With ``inv`` (F,) the rows of the
+    banded layout are filled too: ``ROW_INV`` the inverse areas and
+    ``ROW_GID`` the global face ids as f32."""
     pad = torch.zeros((16 - tri.shape[0], tri.shape[1]), device=tri.device)
+    if inv is not None:
+        pad[ROW_INV - 9] = inv
+        pad[ROW_GID - 9] = torch.arange(tri.shape[1], dtype=torch.float32,
+                                        device=tri.device)
     return torch.cat([tri, pad, attrs], dim=0)
 
 
@@ -463,6 +667,36 @@ def rasterize_binned(verts_screen: torch.Tensor, faces: torch.Tensor,
     return _finish(*out, with_attrs=attrs is not None)
 
 
+def rasterize_banded(verts_screen: torch.Tensor, faces: torch.Tensor,
+                     height: int, width: int, band_cap: int = BAND_CAP,
+                     bin_cap: int = BIN_CAP, band_h: int = BAND_H,
+                     attrs: Optional[torch.Tensor] = None):
+    """Counterpart of ``rasterize_pallas_banded``; outputs as
+    ``rasterize_flat``, bit-identical to it while no band holds more
+    than ``band_cap`` faces and no tile more than ``bin_cap``."""
+    n_faces = faces.shape[0]
+    col_tile = _check_tiling(n_faces, height, width)
+    if bin_cap % FACE_CHUNK or band_cap % FACE_CHUNK:
+        raise ValueError(f"bin_cap and band_cap must be multiples of "
+                         f"{FACE_CHUNK}")
+    if height % band_h or band_h % ROW_TILE:
+        raise ValueError(f"band_h={band_h} must divide {height} and be a "
+                         f"multiple of {ROW_TILE}")
+    if n_faces > 1 << 24:
+        raise ValueError("face ids above 2^24 do not round-trip through f32")
+    band_cap = min(band_cap, n_faces)
+    bin_cap = min(bin_cap, band_cap)
+    tri, inv = face_rows(verts_screen, faces)
+    a = attrs if attrs is not None else torch.zeros(
+        (N_ATTR, n_faces), device=inv.device)
+    table, ids_t, tilenc, fetchnc = bin_faces_banded(
+        face_table(tri, a.float(), inv), *face_bboxes(tri), inv != 0.0,
+        height, width, col_tile, band_h, band_cap, bin_cap)
+    out = raster_banded(table, ids_t, tilenc, fetchnc, height, width,
+                        col_tile, band_h)
+    return _finish(*out, with_attrs=attrs is not None)
+
+
 def bin_overflow_stats(verts_screen: torch.Tensor, faces: torch.Tensor,
                        height: int, width: int, col_tile: int = COL_TILE,
                        cap: int = BIN_CAP):
@@ -472,3 +706,37 @@ def bin_overflow_stats(verts_screen: torch.Tensor, faces: torch.Tensor,
     counts = _tile_overlap(tri, inv, height, width,
                            min(col_tile, width)).sum(dim=1)
     return counts.max(), (counts > cap).sum()
+
+
+def _band_counts(ymin: torch.Tensor, ymax: torch.Tensor, live: torch.Tensor,
+                 height: int, band_h: int) -> torch.Tensor:
+    """(n_bands,) live faces whose y-bbox reaches each band."""
+    by = torch.arange(height // band_h, dtype=torch.float32,
+                      device=ymin.device) * band_h
+    hit = ((ymin[None] <= by[:, None] + band_h) & (ymax[None] >= by[:, None])
+           & live[None])
+    return hit.sum(dim=1)
+
+
+def banded_overflow_stats(verts_screen: torch.Tensor, faces: torch.Tensor,
+                          height: int, width: int, col_tile: int = COL_TILE,
+                          band_h: int = BAND_H):
+    """(max faces per tile, max faces per band) as device scalars: the
+    banded kernel's gate on its two capacities."""
+    tri, inv = face_rows(verts_screen, faces)
+    counts = _tile_overlap(tri, inv, height, width,
+                           min(col_tile, width)).sum(dim=1)
+    _, _, ymin, ymax = face_bboxes(tri)
+    return counts.max(), _band_counts(ymin, ymax, inv != 0.0, height,
+                                      band_h).max()
+
+
+def band_overflow_stats(verts_screen: torch.Tensor, faces: torch.Tensor,
+                        height: int, band_h: int = BAND_H,
+                        band_cap: int = BAND_CAP):
+    """(max faces per band, number of bands above ``band_cap``) as
+    device scalars: the band half of the overflow probe."""
+    tri, inv = face_rows(verts_screen, faces)
+    _, _, ymin, ymax = face_bboxes(tri)
+    counts = _band_counts(ymin, ymax, inv != 0.0, height, band_h)
+    return counts.max(), (counts > band_cap).sum()

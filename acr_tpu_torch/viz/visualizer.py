@@ -4,8 +4,9 @@ Counterpart of the image-path part of ``acr_tpu/viz/visualizer.py``
 (reference: acr/visualization.py:18-300): alpha-blend the rendered mesh
 over the network input (visible weight 0.9), then paste the square
 render back into the original frame through the inverse of the pad/crop
-offsets ('put_org', visualization.py:196-220). The render runs on the
-pipeline's device; compositing is host numpy + cv2.
+offsets ('put_org', visualization.py:196-220), into a 4x frame above
+1000 px of render. The render runs on the pipeline's device; compositing
+is host numpy + cv2.
 """
 
 from __future__ import annotations
@@ -67,7 +68,11 @@ class Visualizer:
 
     def paste_back(self, rendered: np.ndarray, frame_rgb: np.ndarray,
                    offsets: np.ndarray) -> np.ndarray:
-        """'put_org': place the square render into the original frame."""
+        """'put_org': place the square render into the original frame.
+
+        Above 1000 px of render the frame and all ten offsets are scaled
+        by 4 first, so a 2048 px render lands in a 4x frame
+        (reference: visualization.py:206-216)."""
         import cv2
         offsets = offsets.astype(np.int64)
         (ph, pw) = offsets[:2]
@@ -75,6 +80,11 @@ class Visualizer:
         pt, pr, pb, pl = offsets[6:10]
         org = frame_rgb.copy()
         ih, iw = org.shape[:2]
+        if self.cfg.render_size > 1000:
+            ih, iw, ph, pw = ih * 4, iw * 4, ph * 4, pw * 4
+            ct, cr, cb, cl = ct * 4, cr * 4, cb * 4, cl * 4
+            pt, pr, pb, pl = pt * 4, pr * 4, pb * 4, pl * 4
+            org = cv2.resize(org, (iw, ih), interpolation=cv2.INTER_LINEAR)
         resized = cv2.resize(rendered, (int(pw) + 1, int(ph) + 1),
                              interpolation=cv2.INTER_CUBIC)
         org[ct:ih - cb, cl:iw - cr] = resized[pt:ph - pb, pl:pw - pr]

@@ -5,15 +5,20 @@
 
 Run from the root of a checkout. It builds the rasterizer kernels from
 ``acr_tpu_torch/csrc/raster.cu``, holds each kernel against its plain
-PyTorch version on the card, drives the image-mode main path
-(``ACRApp.process_frame``: full-width HRNet-W32 + ACR heads, parser,
-MANO, projection, on-device render, composite) at 512 px on frames made
-from a seed, checks the outputs against the port's own CPU run, and
-times the device step and the kernels with CUDA events. Any failure
-raises and exits nonzero. The last line of standard output is one JSON
-object ``{"ok": true, "device": {...}}``; the line before it is the
-card's ``nvidia-smi`` name and power limit, and before that a JSON line
-with one entry per kernel.
+PyTorch version on the card, and drives two paths on frames made from a
+seed:
+- the image-mode path (``ACRApp.process_frame``: full-width HRNet-W32 +
+  ACR heads, parser, MANO, projection, on-device render, composite) at
+  512 px, through the flat and binned kernels;
+- the webcam stream path (``StreamingLoop`` over 720p frames:
+  the same forward, OneEuro smoothing (``-t``), MANO refine, render)
+  at ``render_size`` 2048, through the banded kernel, and again at 512.
+It checks both against the port's own CPU run, and times the steps, the
+loop and the kernels (CUDA events). Any failure raises and exits
+nonzero. The last line of standard output is one JSON object
+``{"ok": true, "device": {...}}``; the line before it is the card's
+``nvidia-smi`` name and power limit, and before that a JSON line with
+one entry per kernel.
 
 Weights are random (``init_params`` from seed 0), with the two 1x1
 fuse convs that emit each hand's parameters damped and biased (see
@@ -23,9 +28,12 @@ two such weight sets: "near" hands (scale 5) cover a few hundred
 pixels, so every tile fits a binned capacity tier (max 363 faces per
 tile on the H100 run); "far" hands (scale 0.6) cover a few dozen, so
 tiles overflow (max 885) and the frame takes the exact flat kernel.
-Both kernels of the path must launch in that run.
+Both kernels of the path must launch in that run. The stream runs the
+"near" weights: at 2048 px the hands straddle two 256-row bands, so
+every band and tile fits the banded kernel's caps.
 """
 
+import dataclasses
 import importlib
 import importlib.util
 import json
@@ -36,11 +44,15 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SIZE = 512
+HI = 2048                     # the stream path's render size
 N_FRAMES = 3                  # per weight set
+N_STREAM = 4                  # frames of each stream run
+N_LOOP = 12                   # frames of each timed loop (2 warm-up)
+FRAME_HW = (720, 1280)        # a 720p webcam frame
 # weak-perspective camera scale of both hands in the main path's two runs
 CAM_SCALE = {"near": 5.0, "far": 0.6}
 # two-hand rest-pose scene for the kernel checks: depth of both hands
-SCENE_DEPTH = {"fits": 0.45, "overflows": 2.5}
+SCENE_DEPTH = {"fits": 0.45, "overflows": 2.5, "fits_hi": 0.2}
 
 
 def say(phase, msg):
@@ -206,13 +218,87 @@ def phase_kernels():
     ref = R.render_hands(o_verts.cpu(), o_trans.cpu(), o_det.cpu(),
                          o_faces.cpu(), size=SIZE)
     rgba_err = float((rgba.cpu() - ref).abs().max())
-    path = "flat" if launched == {"raster_flat": 1, "raster_binned": 0} else None
+    path = "flat" if {k: v for k, v in launched.items() if v} == \
+        {"raster_flat": 1} else None
     say("kernels", f"overflow scene: max {o_max} faces/tile, render_hands "
         f"took {path or launched}; RGBA vs plain path max err {rgba_err:g} "
         "(tol 1e-5)")
     if o_max <= rc.BIN_CAP or path != "flat" or rgba_err > 1e-5:
         raise AssertionError("overflow dispatch check failed")
     return {"flat_err": flat_bary_err, "binned_err": binned_err}
+
+
+def serpentine_scene(device):
+    """Both hands' 3076 faces inside one 256-row band at 2048 px, every
+    tile under the tile cap (tests/test_raster_pallas.py:272-305, drawn
+    at 2048 px with focal 1000): the band overflows, the tiles do not."""
+    import numpy as np
+    import torch
+    n_verts, cols = 778, 56
+    i = np.arange(n_verts)
+    xs = (-0.45 + 0.90 * (i % cols) / (cols - 1)).astype(np.float32)
+    ys = (0.30 + 0.08 * (i // cols) / (n_verts // cols)
+          + 0.002 * (i % 2)).astype(np.float32)
+    verts = np.stack([xs, ys, np.zeros(n_verts, np.float32)], axis=1)
+    f = np.arange(1538) % (n_verts - 2)
+    faces = np.stack([f, f + 1, f + 2], axis=1)
+    t = lambda a, **kw: torch.as_tensor(a, device=device, **kw)
+    return (t(np.stack([verts, verts])),
+            t([[0.0, 0.0, 1.0], [0.0, 0.0, 1.0]]), t([True, True]),
+            t(np.stack([faces, faces]), dtype=torch.long))
+
+
+def phase_kernels_banded():
+    """The banded kernel against its plain version and the flat kernel
+    at 2048 px, and the band-overflow dispatch."""
+    import torch
+    from acr_tpu_torch.viz import raster as R
+    from acr_tpu_torch.viz import raster_cuda as rc
+    dev = torch.device("cuda")
+    scene = rest_pose_scene(dev, SCENE_DEPTH["fits_hi"])
+    screen, all_faces, attrs = R.prepare_scene(*scene, HI, 1265.0)
+    mx_t, mx_b = (int(x) for x in rc.banded_overflow_stats(screen, all_faces,
+                                                           HI, HI))
+    if not R.banded_fits(screen, all_faces, HI):
+        raise AssertionError(f"rest-pose scene does not fit the banded caps "
+                             f"(max {mx_t} faces/tile, {mx_b} faces/band)")
+    tri, inv = rc.face_rows(screen, all_faces)
+    n = all_faces.shape[0]
+    staged = rc.bin_faces_banded(
+        rc.face_table(tri, attrs, inv), *rc.face_bboxes(tri), inv != 0.0, HI,
+        HI, rc.COL_TILE, rc.BAND_H, min(rc.BAND_CAP, n), min(rc.BIN_CAP, n))
+    args = (*staged, HI, HI, rc.COL_TILE, rc.BAND_H)
+    got = rc.raster_banded(*args)
+    err = _max_err(got, rc.raster_banded_plain(*args))
+    flat = rc.raster_flat(tri, inv, attrs, HI, HI)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, f) for g, f in zip(got, flat)):
+        raise AssertionError("banded kernel differs from the flat kernel")
+    covered = int((got[0] >= 0).sum())
+    rc.reset_launch_counts()
+    R.render_hands(*scene, size=HI)
+    took = {k: v for k, v in rc.LAUNCHES.items() if v}
+    say("kernels", f"banded vs plain, rest-pose scene, {n} faces at {HI} px: "
+        f"fid and attrs equal, bary max err {err:g} (tol: fid/attrs equal, "
+        f"bary 1e-5); bit-identical to flat; {covered} covered pixels; max "
+        f"{mx_t} faces/tile, {mx_b} faces/band; render_hands took {took}")
+    if covered < HI * HI // 20 or took != {"raster_banded": 1}:
+        raise AssertionError("banded scene check failed")
+
+    o_scene = serpentine_scene(dev)
+    probe = R.render_overflow_probe(*o_scene, size=HI, focal=1000.0).tolist()
+    rc.reset_launch_counts()
+    rgba = R.render_hands(*o_scene, size=HI, focal=1000.0)
+    took = {k: v for k, v in rc.LAUNCHES.items() if v}
+    drawn = int((rgba[..., 3] > 0).sum())
+    say("kernels", f"band-overflow scene at {HI} px: probe [max faces/tile, "
+        f"tiles over, max faces/band, bands over] = {probe}; render_hands "
+        f"took {took}; {drawn} pixels drawn")
+    if (probe[0] > rc.BIN_CAP or probe[1] or probe[2] <= rc.BAND_CAP
+            or probe[3] < 1 or took != {"raster_flat": 1} or not drawn
+            or not bool(torch.isfinite(rgba).all())):
+        raise AssertionError("band-overflow dispatch check failed")
+    return err
 
 
 def _weights(scale):
@@ -292,7 +378,7 @@ def phase_main(out_dir):
     say("main", f"{2 * N_FRAMES} frames through ACRApp.process_frame in "
         f"{wall:.2f} s (first frames include cuDNN set-up); launches "
         f"{launches}; {written} composited frames written")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in ("raster_flat", "raster_binned") if not launches[k]]
     if missing:
         raise AssertionError(f"kernels not launched by the main path: {missing}")
     return launches, apps, frames
@@ -319,6 +405,103 @@ def phase_device_vs_cpu(apps, frames):
             raise AssertionError(f"{k}: device vs CPU err {errs[k]} > {tol}")
     say("device_vs_cpu", f"max abs err {json.dumps(errs)} "
         "(tol 1e-4, TF32 off on cuDNN and cuBLAS)")
+
+
+def _stream_cfg(render_size, out_dir, **over):
+    from acr_tpu_torch.config import Config
+    kw = dict(input_size=SIZE, render_size=render_size, configs_yml="",
+              centermap_conf_thresh=-1e9, demo_mode="webcam",
+              temporal_optimization=True, output_dir=out_dir)
+    kw.update(over)
+    return Config(**kw)
+
+
+def phase_stream(weights, out_dir):
+    """The webcam stream path: StreamingLoop over 720p frames with -t,
+    at render_size 2048 (the banded kernel) and then 512. The launch
+    counts are zeroed just before each run and read just after it."""
+    import numpy as np
+    import torch
+    from acr_tpu_torch.pipeline.app import ACRApp
+    from acr_tpu_torch.pipeline.streaming import StreamingLoop, SyntheticSource
+    from acr_tpu_torch.viz import raster as R
+    from acr_tpu_torch.viz import raster_cuda as rc
+    launches = {}
+    for size in (HI, SIZE):
+        app = ACRApp(_stream_cfg(size, out_dir, raster_overflow_every=1),
+                     params=weights, device="cuda")
+        state0 = [x.clone() for x in app.filter_state.left.pose]
+        results = []
+        loop = StreamingLoop(app, on_result=lambda img, out: results.append(
+            (img, out)))
+        rc.reset_launch_counts()
+        t0 = time.perf_counter()
+        n = loop.run(SyntheticSource(N_STREAM, *FRAME_HW, seed=0))
+        wall = time.perf_counter() - t0
+        launches[size] = dict(rc.LAUNCHES)
+        scale = 4 if size > 1000 else 1
+        for k, (img, out) in enumerate(results):
+            probe = R.render_overflow_probe(
+                *(torch.as_tensor(out[key][0]).cuda() for key in
+                  ("verts", "cam_trans", "detection_flag")),
+                app.visualizer.faces, size=size).tolist()
+            say("stream", f"{size} px frame {k}: probe [max faces/tile, tiles "
+                f"over, max faces/band, bands over] = {probe}; composited "
+                f"{img.shape}")
+            for key in ("verts", "j3d", "pj2d", "cam_trans", "poses", "_rgba"):
+                if not np.isfinite(out[key]).all():
+                    raise AssertionError(f"non-finite {key}")
+            if out["verts"].shape != (1, 2, 778, 3):
+                raise AssertionError("output shapes")
+            if out["_rgba"].shape != (4, size, size) or not out["_rgba"][3].any():
+                raise AssertionError(f"RGBA {out['_rgba'].shape}, or empty")
+            if img.shape != (FRAME_HW[0] * scale, FRAME_HW[1] * scale, 3):
+                raise AssertionError(f"composited frame {img.shape}")
+            if not out["detection_flag"].all():
+                raise AssertionError("both hands must be detected")
+        st = app.filter_state
+        moved = not all(torch.equal(a, b) for a, b in zip(st.left.pose, state0))
+        if n != N_STREAM or not (bool(st.left.pose.initialized)
+                                 and bool(st.right.pose.initialized) and moved):
+            raise AssertionError("the OneEuro state did not advance")
+        say("stream", f"{n} frames of {FRAME_HW[0]}x{FRAME_HW[1]} through "
+            f"StreamingLoop, -t, render {size} px, in {wall:.2f} s (first "
+            f"frames include set-up); launches {launches[size]}; loop p50 "
+            f"{loop.p50_latency_ms():.3f} ms")
+    if not launches[HI]["raster_banded"]:
+        raise AssertionError("the 2048 px stream never launched raster_banded")
+    if not launches[SIZE]["raster_binned"]:
+        raise AssertionError("the 512 px stream never launched raster_binned")
+    return launches[HI]
+
+
+def _state_leaves(state):
+    if isinstance(state, tuple):
+        return [x for s in state for x in _state_leaves(s)]
+    return [state.cpu().float()]
+
+
+def phase_device_vs_cpu_t(weights, out_dir):
+    """-t through process_frame on the card and on the CPU, same frames."""
+    from acr_tpu_torch.pipeline.app import ACRApp
+    from acr_tpu_torch.pipeline.streaming import SyntheticSource
+    cfg = _stream_cfg(HI, out_dir, demo_mode="video")
+    gpu = ACRApp(cfg, params=weights, device="cuda")
+    cpu = ACRApp(dataclasses.replace(cfg, renderer="none"), params=weights,
+                 device="cpu")
+    errs = {"verts": 0.0, "j3d": 0.0, "pj2d": 0.0}
+    for k, frame in enumerate(SyntheticSource(3, *FRAME_HW, seed=1).frames):
+        gpu.process_frame(frame, f"t{k}.jpg")
+        cpu.process_frame(frame, f"t{k}.jpg")
+        for key in errs:
+            errs[key] = max(errs[key], float(abs(
+                gpu.last_output[key] - cpu.last_output[key]).max()))
+    state_err = max(float((a - b).abs().max()) for a, b in zip(
+        _state_leaves(gpu.filter_state), _state_leaves(cpu.filter_state)))
+    say("device_vs_cpu", f"-t, 3 frames through process_frame: max abs err "
+        f"{json.dumps(errs)}, OneEuro state {state_err:g} (tol 1e-4)")
+    if max(errs.values()) > 1e-4 or state_err > 1e-4:
+        raise AssertionError("-t: device and CPU disagree")
 
 
 def _main_path_scene(app):
@@ -408,6 +591,60 @@ def phase_times(card, apps, frames):
     return {k: v[0] for k, v in times.items()}, errs
 
 
+def phase_times_stream(card, weights, out_dir):
+    """The b1 stream step and the streaming loop at 512 and 2048 px, and
+    the banded kernel, its plain version and its prestage at 2048 px on
+    a frame of the stream."""
+    import numpy as np
+    import torch
+    from acr_tpu_torch.pipeline.app import ACRApp
+    from acr_tpu_torch.pipeline.preprocess import img_preprocess
+    from acr_tpu_torch.pipeline.streaming import StreamingLoop, SyntheticSource
+    from acr_tpu_torch.viz import raster as R
+    from acr_tpu_torch.viz import raster_cuda as rc
+    times = {}
+    frame = SyntheticSource(1, *FRAME_HW, seed=3).read()
+    meta = img_preprocess(frame, None, SIZE)
+    for size in (SIZE, HI):
+        app = ACRApp(_stream_cfg(size, out_dir), params=weights, device="cuda")
+        times[f"stream_step_{size}"] = cuda_ms(lambda: app.stream_step(meta),
+                                               iters=20)
+        say("times", f"b1 fp32 stream step (forward + OneEuro + refine + "
+            f"render {size} px): {ms_text(times[f'stream_step_{size}'])} "
+            f"[{card}]")
+        loop = StreamingLoop(app)
+        loop.run(SyntheticSource(N_LOOP, *FRAME_HW, seed=4))
+        lat = sorted(loop.latencies[2:])
+        say("times", f"StreamingLoop host latency per frame ({FRAME_HW[0]}x"
+            f"{FRAME_HW[1]} frames, -t, render {size} px, readback and "
+            f"composite included): p50 {float(np.percentile(lat, 50)):.3f} ms, "
+            f"min {lat[0]:.3f}, max {lat[-1]:.3f} over {len(lat)} frames "
+            f"[{card}]")
+    out = app.unpack_stream(app.stream_step(meta))
+    t = lambda k: torch.as_tensor(out[k][0]).cuda()
+    screen, faces, attrs = R.prepare_scene(
+        t("verts"), t("cam_trans"), t("detection_flag"), app.visualizer.faces,
+        HI, app.cfg.focal_length)
+    if not R.banded_fits(screen, faces, HI):
+        raise AssertionError("the stream frame should take the banded kernel")
+    tri, inv = rc.face_rows(screen, faces)
+    n = faces.shape[0]
+    stage = lambda: rc.bin_faces_banded(
+        rc.face_table(tri, attrs, inv), *rc.face_bboxes(tri), inv != 0.0, HI,
+        HI, rc.COL_TILE, rc.BAND_H, min(rc.BAND_CAP, n), min(rc.BIN_CAP, n))
+    args = (*stage(), HI, HI, rc.COL_TILE, rc.BAND_H)
+    err = _max_err(rc.raster_banded(*args), rc.raster_banded_plain(*args))
+    for name, fn, iters in (
+            ("banded_prestage", stage, 20),
+            ("raster_banded", lambda: rc.raster_banded(*args), 50),
+            ("raster_banded_plain", lambda: rc.raster_banded_plain(*args), 3)):
+        times[name] = cuda_ms(fn, iters=iters)
+        say("times", f"{name} ({HI} px, {n} faces, the stream's frame, max "
+            f"{int(args[2].max()) * rc.FACE_CHUNK} slots/tile bound): "
+            f"{ms_text(times[name])} [{card}]")
+    return {k: v[0] for k, v in times.items()}, err
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "acr_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -419,10 +656,16 @@ def main():
     card, _ = phase_env()
     phase_build()
     kin = phase_kernels()
+    banded_err = phase_kernels_banded()
     out_dir = os.path.join(ROOT, "build", "chip_smoke_out")
     launches, apps, frames = phase_main(out_dir)
+    weights = _weights(CAM_SCALE["near"])
+    stream_launches = phase_stream(weights, os.path.join(out_dir, "stream"))
     phase_device_vs_cpu(apps, frames)
+    phase_device_vs_cpu_t(weights, os.path.join(out_dir, "t"))
     times, errs = phase_times(card, apps, frames)
+    stimes, stream_err = phase_times_stream(card, weights,
+                                            os.path.join(out_dir, "times"))
     src = "acr_tpu_torch/csrc/raster.cu"
     print(json.dumps({"kernels": [
         {"name": "raster_flat", "route": "cuda", "source": src,
@@ -436,6 +679,12 @@ def main():
          "max_abs_err": max(kin["binned_err"], errs["raster_binned"]),
          "ms": times["raster_binned"],
          "plain_ms": times["raster_binned_plain"]},
+        {"name": "raster_banded", "route": "cuda", "source": src,
+         "replaces": "acr_tpu/viz/raster_pallas.py:298",
+         "launches": stream_launches["raster_banded"],
+         "max_abs_err": max(banded_err, stream_err),
+         "ms": stimes["raster_banded"],
+         "plain_ms": stimes["raster_banded_plain"]},
     ]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

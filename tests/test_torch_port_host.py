@@ -3,6 +3,7 @@ raise, and neither an acr_tpu_torch module nor chip_smoke.py imports JAX
 or the JAX package."""
 
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -12,11 +13,17 @@ import pytest
 import torch
 
 from acr_tpu import config as jconfig
+from acr_tpu.io import writers as jwriters
+from acr_tpu.pipeline import capture as jcapture
 from acr_tpu.pipeline import preprocess as jpre
 from acr_tpu.pipeline import results as jres
+from acr_tpu.utils import meters as jmeters
 from acr_tpu_torch import config as tconfig
+from acr_tpu_torch.io import writers as twriters
+from acr_tpu_torch.pipeline import capture as tcapture
 from acr_tpu_torch.pipeline import preprocess as tpre
 from acr_tpu_torch.pipeline import results as tres
+from acr_tpu_torch.utils import meters as tmeters
 from acr_tpu_torch.pipeline.infer import check_slice
 
 torch.set_num_threads(2)
@@ -79,29 +86,59 @@ def test_results_copy_equal():
         jres.sort_results_by_hand(want).keys()
 
 
+def test_writers_copy_equal(tmp_path):
+    for name in ("collect_image_list", "split_frame", "_frame_sort_key",
+                 "save_video", "save_results", "IMG_EXTS", "_AUX_SUFFIXES"):
+        j, t = getattr(jwriters, name), getattr(twriters, name)
+        if callable(j):
+            assert inspect.getsource(t) == inspect.getsource(j), name
+        else:
+            assert t == j, name
+    for rel in ("b/10.jpg", "b/2.png", "a/1.JPG", "c.txt"):
+        (tmp_path / rel).parent.mkdir(exist_ok=True)
+        (tmp_path / rel).write_bytes(b"")
+    assert twriters.collect_image_list(str(tmp_path)) == \
+        jwriters.collect_image_list(str(tmp_path))
+
+
+@pytest.mark.parametrize("module_pair,names", [
+    ((jmeters, tmeters), ("AverageMeter", "AverageMeterDict", "StageTimer")),
+    ((jcapture, tcapture), ("OpenCVCapture", "WebcamVideoStream")),
+])
+def test_meters_and_capture_copies_equal(module_pair, names):
+    j, t = module_pair
+    for name in names:
+        assert inspect.getsource(getattr(t, name)) == \
+            inspect.getsource(getattr(j, name)), name
+
+
 @pytest.mark.parametrize("override,item", [
-    (dict(temporal_optimization=True), "A8"),
+    (dict(jit_translation_solve=False), "A15"),
     (dict(model_precision="bf16"), "A6"),
     (dict(quantize="int8"), "A13"),
     (dict(data_parallel=2), "A14"),
     (dict(renderer="native"), "A15"),
     (dict(use_pallas_mano="on"), "A12"),
-    (dict(demo_mode="video"), "A9"),
-    (dict(render_size=2048), "A11"),
+    (dict(demo_mode="video", val_batch_size=4), "A9b"),
+    (dict(demo_mode="folder", val_batch_size=2), "A9b"),
     (dict(show_items=("mesh", "pj2d")), "A10"),
 ])
 def test_unported_options_raise(override, item):
     with pytest.raises(NotImplementedError, match=item):
         check_slice(tconfig.Config(**override))
-    # the TPU rewrites and the default slice are accepted
+    # the TPU rewrites, the default slice and the streaming slice
+    # (-t, 2048 px, every demo mode at batch 1) are accepted
     check_slice(tconfig.Config(s2d_highres=False, merged_heads=False))
+    for mode in ("image", "folder", "video", "webcam"):
+        check_slice(tconfig.Config(demo_mode=mode, temporal_optimization=True,
+                                   render_size=2048, interactive_vis=True))
 
 
 def test_cli_rejects_unported_mode_before_loading():
     from acr_tpu_torch.cli import main
-    with pytest.raises(NotImplementedError, match="A9"):
-        main(["--demo_mode", "webcam", "--model_path", "/nonexistent.npz",
-              "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="A9b"):
+        main(["--demo_mode", "video", "--val_batch_size", "2",
+              "--model_path", "/nonexistent.npz", "--device", "cpu"])
 
 
 def test_no_module_imports_jax():
@@ -116,9 +153,11 @@ def test_no_module_imports_jax():
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
         "             and (m == 'acr_tpu' or m.startswith(('acr_tpu.', 'jax', 'flax'))))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n"
+        "new = {'acr_tpu_torch.pipeline.' + m for m in\n"
+        "       ('temporal', 'streaming', 'capture')}\n"
+        "assert new | {'acr_tpu_torch.utils.meters'} <= set(names), names\n"
         "print(len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20
+    assert int(proc.stdout.strip()) >= 31
