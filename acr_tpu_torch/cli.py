@@ -14,20 +14,16 @@ import sys
 
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
-    import torch
     from acr_tpu_torch.config import parse_args
     from acr_tpu_torch.pipeline.app import ACRApp
+    from acr_tpu_torch.utils.device import resolve_device
     argv = list(sys.argv[1:] if argv is None else argv)
     device = "cuda"
     if "--device" in argv:
         i = argv.index("--device")
         device = argv[i + 1]
         del argv[i:i + 2]
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {device}: no CUDA card is visible "
-            "(torch.cuda.is_available() is False); pass --device cpu to run "
-            "the plain PyTorch versions on the CPU")
+    resolve_device(device)          # no card: raise before parsing/loading
     cfg = parse_args(argv)
     logging.info("config: %s (device %s)", cfg, device)
     return ACRApp(cfg, device=device).run()

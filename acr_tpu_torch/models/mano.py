@@ -69,35 +69,28 @@ def _with_translation(rots: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
-def mano_forward(model: ManoModel, poses: torch.Tensor, betas: torch.Tensor,
-                 center_idx: Optional[int] = 9, add_mean: bool = True):
-    """MANO forward pass.
-
-    poses (B, 48) axis-angle [global_orient(3) | 15 joints(45)], with the
-    stored mean pose added to the 45 articulation dims when ``add_mean``;
-    betas (B, 10). Returns verts (B, 778, 3), joints (B, 21, 3) and the
-    root-alignment center (B, 1, 3), or None when ``center_idx`` is None.
-    """
+def pose_rotations(hands_mean: torch.Tensor, poses: torch.Tensor,
+                   add_mean: bool = True):
+    """(B, 48) axis-angle poses -> rotmats (B, 16, 3, 3) and the pose map
+    (B, 135), ``rotmats[:, 1:] - I`` flattened."""
     B = poses.shape[0]
     root_aa = poses[:, :3]
     hand_aa = poses[:, 3:]
     if add_mean:
-        hand_aa = hand_aa + model.hands_mean[None]
-
+        hand_aa = hand_aa + hands_mean[None]
     full_aa = torch.cat([root_aa, hand_aa], dim=1).reshape(B, 16, 3)
     rotmats = axis_angle_to_rotmat(full_aa)                  # (B, 16, 3, 3)
-    root_rot = rotmats[:, 0]
     eye = torch.eye(3, dtype=rotmats.dtype, device=rotmats.device)
-    pose_map = (rotmats[:, 1:] - eye).reshape(B, 135)
+    return rotmats, (rotmats[:, 1:] - eye).reshape(B, 135)
 
-    v_shaped = (torch.einsum("vct,bt->bvc", model.shapedirs, betas)
-                + model.v_template[None])
-    j_rest = torch.einsum("jv,bvc->bjc", model.j_regressor, v_shaped)
-    v_posed = v_shaped + torch.einsum("vcp,bp->bvc", model.posedirs, pose_map)
 
+def skinning_transforms(rotmats: torch.Tensor, j_rest: torch.Tensor):
+    """3-level forward kinematics: rotmats (B, 16, 3, 3), rest joints
+    (B, 16, 3) -> the joints' world transforms G (B, 16, 4, 4) in joint
+    order, and the skinning transforms G' = G - pack(G @ [j; 0])."""
     lev1, lev2, lev3 = list(LEV1), list(LEV2), list(LEV3)
     root_j = j_rest[:, 0]
-    g_root = _with_translation(root_rot, root_j)             # (B, 4, 4)
+    g_root = _with_translation(rotmats[:, 0], root_j)        # (B, 4, 4)
     rel1 = _with_translation(rotmats[:, lev1], j_rest[:, lev1] - root_j[:, None])
     rel2 = _with_translation(rotmats[:, lev2], j_rest[:, lev2] - j_rest[:, lev1])
     rel3 = _with_translation(rotmats[:, lev3], j_rest[:, lev3] - j_rest[:, lev2])
@@ -112,19 +105,42 @@ def mano_forward(model: ManoModel, poses: torch.Tensor, betas: torch.Tensor,
     shifted = torch.einsum("bjik,bjk->bji", g_all, j_h)
     g_skin = g_all.clone()
     g_skin[..., 3] = g_skin[..., 3] - shifted
+    return g_all, g_skin
 
-    # linear blend skinning: T(b,v) = sum_j weights[v,j] * G'(b,j)
-    t = torch.einsum("vj,bjik->bvik", model.weights, g_skin)
-    verts = (torch.einsum("bvik,bvk->bvi", t[:, :, :3, :3], v_posed)
-             + t[:, :, :3, 3])
 
+def joints_and_align(g_all: torch.Tensor, verts: torch.Tensor,
+                     tips: torch.Tensor, center_idx: Optional[int]):
+    """The 21 output joints (16 joint origins + 5 fingertip vertices, in
+    the reference order) and the root alignment on ``center_idx``.
+    Returns (verts, joints21, center or None)."""
     joints16 = g_all[:, :, :3, 3]
-    tips = verts[:, model.tips]                              # (B, 5, 3)
-    joints21 = torch.cat([joints16, tips], dim=1)[:, list(REORDER_21)]
-
+    joints21 = torch.cat([joints16, verts[:, tips]], dim=1)[:, list(REORDER_21)]
     center = None
     if center_idx is not None:
         center = joints21[:, center_idx:center_idx + 1]
         joints21 = joints21 - center
         verts = verts - center
     return verts, joints21, center
+
+
+def mano_forward(model: ManoModel, poses: torch.Tensor, betas: torch.Tensor,
+                 center_idx: Optional[int] = 9, add_mean: bool = True):
+    """MANO forward pass.
+
+    poses (B, 48) axis-angle [global_orient(3) | 15 joints(45)], with the
+    stored mean pose added to the 45 articulation dims when ``add_mean``;
+    betas (B, 10). Returns verts (B, 778, 3), joints (B, 21, 3) and the
+    root-alignment center (B, 1, 3), or None when ``center_idx`` is None.
+    """
+    rotmats, pose_map = pose_rotations(model.hands_mean, poses, add_mean)
+    v_shaped = (torch.einsum("vct,bt->bvc", model.shapedirs, betas)
+                + model.v_template[None])
+    j_rest = torch.einsum("jv,bvc->bjc", model.j_regressor, v_shaped)
+    v_posed = v_shaped + torch.einsum("vcp,bp->bvc", model.posedirs, pose_map)
+    g_all, g_skin = skinning_transforms(rotmats, j_rest)
+
+    # linear blend skinning: T(b,v) = sum_j weights[v,j] * G'(b,j)
+    t = torch.einsum("vj,bjik->bvik", model.weights, g_skin)
+    verts = (torch.einsum("bvik,bvk->bvi", t[:, :, :3, :3], v_posed)
+             + t[:, :, :3, 3])
+    return joints_and_align(g_all, verts, model.tips, center_idx)

@@ -17,7 +17,7 @@ by default, about three significant digits).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -25,13 +25,19 @@ import torch
 from acr_tpu_torch.config import Config
 from acr_tpu_torch.io.params import load_params
 from acr_tpu_torch.models.acr import ACRNet
-from acr_tpu_torch.models.mano import load_mano_model, mano_forward
+from acr_tpu_torch.models.mano import ManoModel, load_mano_model, mano_forward
+from acr_tpu_torch.ops.mano_kernel import (
+    ManoKernelData,
+    build_kernel_data,
+    mano_forward_fused,
+)
 from acr_tpu_torch.parser.parse import parse_outputs
 from acr_tpu_torch.pipeline.project import (
     estimate_translation_ls,
     kp2d_to_org_image,
     weak_persp_project,
 )
+from acr_tpu_torch.utils.device import resolve_device
 
 
 def check_slice(cfg: Config) -> None:
@@ -46,11 +52,6 @@ def check_slice(cfg: Config) -> None:
         (cfg.data_parallel > 1,
          f"data_parallel={cfg.data_parallel}: ROADMAP A14"),
         (cfg.renderer == "native", "renderer='native': ROADMAP A15"),
-        (cfg.use_pallas_mano == "on",
-         "use_pallas_mano='on' (fused MANO kernel B4): ROADMAP A12"),
-        (cfg.demo_mode in ("video", "folder") and cfg.val_batch_size > 1,
-         f"val_batch_size={cfg.val_batch_size} in {cfg.demo_mode} mode "
-         "(the chunk step, _run_batched): ROADMAP A9b"),
         (bool(set(cfg.show_items) - {"mesh"}),
          f"show_items={cfg.show_items!r} (aux views): ROADMAP A10"),
         (not cfg.jit_translation_solve,
@@ -68,6 +69,37 @@ def set_fp32_math() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+class ManoAuto(NamedTuple):
+    """Both MANO representations of one side, dispatched by batch size."""
+    model: ManoModel
+    kernel: ManoKernelData
+
+
+# The smallest batch (hands per MANO call) from which mano_forward_fused
+# is no slower than the pure mano_forward: in chip_smoke.py's sweep over
+# B in {8, 64, 256, 512, 1024, 4096} (phase_times_throughput) on an
+# NVIDIA H100 80GB HBM3 at a 700 W power limit, the fused path launched
+# fewer device events and took less device time at every B. Below about
+# 1024 hands both paths are bound by their launches, and their CUDA-event
+# times are within the host's noise of each other (PERF.md). The JAX
+# package's 512 was measured on a TPU.
+PALLAS_MANO_MIN_BATCH = 8
+
+
+def _apply_mano(mano, poses, betas, center_idx):
+    """Dispatch on the asset type: the fused kernel path or the pure
+    path. ``ManoAuto`` takes the fused path from
+    ``PALLAS_MANO_MIN_BATCH`` hands per call."""
+    if isinstance(mano, ManoAuto):
+        if poses.shape[0] >= PALLAS_MANO_MIN_BATCH:
+            return mano_forward_fused(mano.kernel, poses, betas,
+                                      center_idx=center_idx)
+        return mano_forward(mano.model, poses, betas, center_idx=center_idx)
+    if isinstance(mano, ManoKernelData):
+        return mano_forward_fused(mano, poses, betas, center_idx=center_idx)
+    return mano_forward(mano, poses, betas, center_idx=center_idx)
+
+
 def _mano_projection_tail(mano_l, mano_r, poses, betas, cam, offsets,
                           cfg: Config) -> Dict[str, torch.Tensor]:
     """MANO -> weak-persp -> translation -> org-image tail.
@@ -75,8 +107,8 @@ def _mano_projection_tail(mano_l, mano_r, poses, betas, cam, offsets,
     poses (B,2,48), betas (B,2,10), cam (B,2,3), offsets (B,10).
     """
     align = cfg.align_idx if cfg.mano_mesh_root_align else None
-    verts_l, j3d_l, _ = mano_forward(mano_l, poses[:, 0], betas[:, 0], align)
-    verts_r, j3d_r, _ = mano_forward(mano_r, poses[:, 1], betas[:, 1], align)
+    verts_l, j3d_l, _ = _apply_mano(mano_l, poses[:, 0], betas[:, 0], align)
+    verts_r, j3d_r, _ = _apply_mano(mano_r, poses[:, 1], betas[:, 1], align)
     verts = torch.stack([verts_l, verts_r], dim=1)      # (B, 2, 778, 3)
     j3d = torch.stack([j3d_l, j3d_r], dim=1)            # (B, 2, 21, 3)
     verts_camed = weak_persp_project(verts, cam, keep_dim=True)
@@ -147,14 +179,16 @@ class ACRPipeline:
     ``params`` is a state dict of the canonical ACRNet (``init_params``
     or ``io.params.from_flax``); None loads ``cfg.model_path``, an npz
     of flax paths. ``merge_params`` is the merge-mode fusion head.
+    ``device`` is ``cuda`` unless the caller asks for the CPU; without a
+    card a CUDA device raises.
     """
 
     def __init__(self, cfg: Config, params: Optional[Dict[str, torch.Tensor]] = None,
-                 device="cpu", merge_params=None):
+                 device="cuda", merge_params=None):
         check_slice(cfg)
+        self.device = resolve_device(device)
         set_fp32_math()
         self.cfg = cfg
-        self.device = torch.device(device)
         if params is None:
             params, merge_params = load_params(cfg.model_path)
         self.net = ACRNet(inter_prior=cfg.inter_prior,
@@ -170,6 +204,15 @@ class ACRPipeline:
         self.mano_r, faces_r = load_mano_model(cfg.mano_model_path, "right",
                                                device=self.device)
         self.faces = np.stack([faces_l, faces_r])      # (2, 1538, 3)
+        # 'on' always takes the fused kernel, 'auto' from
+        # PALLAS_MANO_MIN_BATCH hands per call (on the CPU the fused path
+        # runs the kernel's plain version)
+        if cfg.use_pallas_mano == "on":
+            self.mano_l = build_kernel_data(self.mano_l)
+            self.mano_r = build_kernel_data(self.mano_r)
+        elif cfg.use_pallas_mano == "auto":
+            self.mano_l = ManoAuto(self.mano_l, build_kernel_data(self.mano_l))
+            self.mano_r = ManoAuto(self.mano_r, build_kernel_data(self.mano_r))
 
     @torch.no_grad()
     def __call__(self, image, offsets, return_maps: bool = False

@@ -29,21 +29,17 @@ The plain versions compute the edge math with the same operations in
 the same order, one rounding per operation, so on the card a kernel and
 its plain version agree bit for bit. ``LAUNCHES`` counts kernel launches.
 
-The kernels are built at first use with ``nvcc`` into a shared library
-with a plain C interface, loaded with ctypes, under
-``build/torch_ext/<hash of the sources and flags>/`` in the checkout.
+The kernels are built at first use, with the port's other CUDA sources,
+into one shared library by ``acr_tpu_torch.ops.cuda_lib``.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
+
+from acr_tpu_torch.ops import cuda_lib
 
 ROW_TILE = 8
 FACE_CHUNK = 128      # faces padded to a multiple; plain versions fold chunks
@@ -61,81 +57,10 @@ ROW_INV, ROW_GID, ROW_ATTR = 9, 10, 16
 LAUNCHES: Dict[str, int] = {"raster_flat": 0, "raster_binned": 0,
                             "raster_banded": 0}
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_REPO = os.path.dirname(_PKG)
-SOURCES = (os.path.join(_PKG, "csrc", "raster.cu"),)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
-_LIB_NAME = "libacr_raster.so"
-_lib = None
-_lib_lock = threading.Lock()
-
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (nvcc): cannot build "
-                           "the rasterizer kernels")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def build_extension() -> Tuple[str, str]:
-    """Compile ``csrc/raster.cu`` if this exact source has no build yet.
-
-    Returns (path of the shared library, the compiler's log, which holds
-    ptxas' register and spill report; empty when the build existed)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        with open(src, "rb") as f:
-            h.update(f.read())
-    out_dir = os.path.join(_REPO, "build", "torch_ext", h.hexdigest()[:16])
-    so = os.path.join(out_dir, _LIB_NAME)
-    if os.path.exists(so):
-        return so, ""
-    os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES],
-                          capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(log)
-    os.replace(tmp, so)
-    return so, log
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            so, _ = build_extension()
-            lib = ctypes.CDLL(so)
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.acr_raster_flat.argtypes = [p, p, p, i, i, i, p, p, p, p, p]
-            lib.acr_raster_flat.restype = i
-            lib.acr_raster_binned.argtypes = [p, p, p, p, i, i, i, i,
-                                              p, p, p, p, p]
-            lib.acr_raster_binned.restype = i
-            lib.acr_raster_banded.argtypes = [p, p, p, i, i, i, i, i, i,
-                                              p, p, p, p, p]
-            lib.acr_raster_banded.restype = i
-            _lib = lib
-    return _lib
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: want {dtype} {tuple(shape)} on {device}, "
-                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _outputs(height: int, width: int, device):
@@ -144,14 +69,6 @@ def _outputs(height: int, width: int, device):
             torch.empty((height, width), dtype=torch.float32, device=device),
             torch.empty((N_ATTR, height, width), dtype=torch.float32,
                         device=device))
-
-
-def _launch(fn, device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -246,14 +163,14 @@ def raster_flat(tri: torch.Tensor, inv: torch.Tensor, attrs: torch.Tensor,
         raise ValueError(f"raster_flat: unsupported device {inv.device}")
     n_faces = inv.shape[0]
     dev = inv.device
-    _check("tri", tri, torch.float32, (9, n_faces), dev)
-    _check("inv", inv, torch.float32, (n_faces,), dev)
-    _check("attrs", attrs, torch.float32, (N_ATTR, n_faces), dev)
+    cuda_lib.check("tri", tri, torch.float32, (9, n_faces), dev)
+    cuda_lib.check("inv", inv, torch.float32, (n_faces,), dev)
+    cuda_lib.check("attrs", attrs, torch.float32, (N_ATTR, n_faces), dev)
     fid, b0, b1, attr_planes = _outputs(height, width, dev)
-    lib = _library()
-    _launch(lib.acr_raster_flat, dev, tri.data_ptr(), inv.data_ptr(),
-            attrs.data_ptr(), n_faces, height, width, fid.data_ptr(),
-            b0.data_ptr(), b1.data_ptr(), attr_planes.data_ptr())
+    cuda_lib.launch(cuda_lib.library().acr_raster_flat, dev,
+                    tri.data_ptr(), inv.data_ptr(),
+                    attrs.data_ptr(), n_faces, height, width, fid.data_ptr(),
+                    b0.data_ptr(), b1.data_ptr(), attr_planes.data_ptr())
     LAUNCHES["raster_flat"] += 1
     return fid, b0, b1, attr_planes
 
@@ -394,16 +311,16 @@ def raster_binned(counts: torch.Tensor, tri_t: torch.Tensor,
             or n_tiles != (height // ROW_TILE) * (width // col_tile)):
         raise ValueError(f"raster_binned: {n_tiles} tiles do not tile "
                          f"{height}x{width} at 8x{col_tile}")
-    _check("counts", counts, torch.int32, (n_tiles,), dev)
-    _check("tri_t", tri_t, torch.float32, (n_tiles, 32, cap), dev)
-    _check("inv_t", inv_t, torch.float32, (n_tiles, cap), dev)
-    _check("ids_t", ids_t, torch.int32, (n_tiles, cap), dev)
+    cuda_lib.check("counts", counts, torch.int32, (n_tiles,), dev)
+    cuda_lib.check("tri_t", tri_t, torch.float32, (n_tiles, 32, cap), dev)
+    cuda_lib.check("inv_t", inv_t, torch.float32, (n_tiles, cap), dev)
+    cuda_lib.check("ids_t", ids_t, torch.int32, (n_tiles, cap), dev)
     fid, b0, b1, attr_planes = _outputs(height, width, dev)
-    lib = _library()
-    _launch(lib.acr_raster_binned, dev, counts.data_ptr(), tri_t.data_ptr(),
-            inv_t.data_ptr(), ids_t.data_ptr(), cap, height, width, col_tile,
-            fid.data_ptr(), b0.data_ptr(), b1.data_ptr(),
-            attr_planes.data_ptr())
+    cuda_lib.launch(cuda_lib.library().acr_raster_binned, dev,
+                    counts.data_ptr(), tri_t.data_ptr(), inv_t.data_ptr(),
+                    ids_t.data_ptr(), cap, height, width, col_tile,
+                    fid.data_ptr(), b0.data_ptr(), b1.data_ptr(),
+                    attr_planes.data_ptr())
     LAUNCHES["raster_binned"] += 1
     return fid, b0, b1, attr_planes
 
@@ -569,16 +486,16 @@ def raster_banded(table: torch.Tensor, ids_t: torch.Tensor,
         raise ValueError(f"raster_banded: {n_bands} bands of {band_h} rows "
                          f"and {n_tiles} tiles do not tile {height}x{width} "
                          f"at 8x{col_tile}")
-    _check("table", table, torch.float32, (n_bands, 32, band_cap), dev)
-    _check("ids_t", ids_t, torch.int32, (n_tiles, 1, cap), dev)
-    _check("tilenc", tilenc, torch.int32, (n_tiles,), dev)
-    _check("fetchnc", fetchnc, torch.int32, (n_tiles,), dev)
+    cuda_lib.check("table", table, torch.float32, (n_bands, 32, band_cap), dev)
+    cuda_lib.check("ids_t", ids_t, torch.int32, (n_tiles, 1, cap), dev)
+    cuda_lib.check("tilenc", tilenc, torch.int32, (n_tiles,), dev)
+    cuda_lib.check("fetchnc", fetchnc, torch.int32, (n_tiles,), dev)
     fid, b0, b1, attr_planes = _outputs(height, width, dev)
-    lib = _library()
-    _launch(lib.acr_raster_banded, dev, tilenc.data_ptr(), table.data_ptr(),
-            ids_t.data_ptr(), band_cap, cap, band_h, height, width, col_tile,
-            fid.data_ptr(), b0.data_ptr(), b1.data_ptr(),
-            attr_planes.data_ptr())
+    cuda_lib.launch(cuda_lib.library().acr_raster_banded, dev,
+                    tilenc.data_ptr(), table.data_ptr(), ids_t.data_ptr(),
+                    band_cap, cap, band_h, height, width, col_tile,
+                    fid.data_ptr(), b0.data_ptr(), b1.data_ptr(),
+                    attr_planes.data_ptr())
     LAUNCHES["raster_banded"] += 1
     return fid, b0, b1, attr_planes
 

@@ -17,15 +17,18 @@ import numpy as np
 import torch
 
 from acr_tpu_torch.config import Config
+from acr_tpu_torch.utils.device import resolve_device
 from acr_tpu_torch.viz.raster import render_hands, render_overflow_probe
 
 
 class Visualizer:
-    """Owns the MANO faces on the device; composition in numpy."""
+    """Owns the MANO faces on the device (``cuda`` unless the caller asks
+    for the CPU); composition in numpy."""
 
-    def __init__(self, cfg: Config, faces: np.ndarray, device="cpu"):
+    def __init__(self, cfg: Config, faces: np.ndarray, device="cuda"):
         self.cfg = cfg
-        self.faces = torch.as_tensor(faces.astype(np.int64), device=device)
+        self.faces = torch.as_tensor(faces.astype(np.int64),
+                                     device=resolve_device(device))
         # 'pt3d' mirrors the pytorch3d backend's rule: FoVPerspective when
         # perspective_proj else FoVOrthographic (renderer_pt3d.py:74-110)
         cm = cfg.camera_model

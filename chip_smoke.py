@@ -3,22 +3,26 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the rasterizer kernels from
-``acr_tpu_torch/csrc/raster.cu``, holds each kernel against its plain
-PyTorch version on the card, and drives two paths on frames made from a
-seed:
+Run from the root of a checkout. It builds the port's CUDA kernels from
+``acr_tpu_torch/csrc/raster.cu`` and ``csrc/mano.cu``, holds each kernel
+against its plain PyTorch version on the card, and drives three paths on
+frames made from a seed:
 - the image-mode path (``ACRApp.process_frame``: full-width HRNet-W32 +
   ACR heads, parser, MANO, projection, on-device render, composite) at
   512 px, through the flat and binned kernels;
 - the webcam stream path (``StreamingLoop`` over 720p frames:
   the same forward, OneEuro smoothing (``-t``), MANO refine, render)
-  at ``render_size`` 2048, through the banded kernel, and again at 512.
-It checks both against the port's own CPU run, and times the steps, the
-loop and the kernels (CUDA events). Any failure raises and exits
-nonzero. The last line of standard output is one JSON object
-``{"ok": true, "device": {...}}``; the line before it is the card's
-``nvidia-smi`` name and power limit, and before that a JSON line with
-one entry per kernel.
+  at ``render_size`` 2048, through the banded kernel, and again at 512;
+- the throughput path (``ACRApp.run_folder`` over 720p JPEG frames at
+  ``val_batch_size`` 8 with ``-t``: the chunk step's forward, OneEuro
+  over the chunk, MANO refine, a render per frame), through the fused
+  MANO kernel (``use_pallas_mano="on"``) and the binned kernel.
+It checks them against the port's own CPU run, and times the steps, the
+loop, the chunk step, folder mode and the kernels (CUDA events). Any
+failure raises and exits nonzero. The last line of standard output is
+one JSON object ``{"ok": true, "device": {...}}``; the line before it is
+the card's ``nvidia-smi`` name and power limit, and before that a JSON
+line with one entry per kernel.
 
 Weights are random (``init_params`` from seed 0), with the two 1x1
 fuse convs that emit each hand's parameters damped and biased (see
@@ -55,8 +59,11 @@ CAM_SCALE = {"near": 5.0, "far": 0.6}
 SCENE_DEPTH = {"fits": 0.45, "overflows": 2.5, "fits_hi": 0.2}
 
 
+T0 = time.perf_counter()
+
+
 def say(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase} +{time.perf_counter() - T0:.1f}s] {msg}", flush=True)
 
 
 def card_line():
@@ -69,7 +76,7 @@ def card_line():
 def cuda_ms(fn, iters=20, reps=5, warmup=3):
     """ms per call of ``fn`` on the current stream, by CUDA events: the
     mean over ``iters`` calls, in ``reps`` windows. Returns (median of
-    the windows, min, max)."""
+    the windows, min, max, number of windows, the sorted windows)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -85,18 +92,49 @@ def cuda_ms(fn, iters=20, reps=5, warmup=3):
         torch.cuda.synchronize()
         windows.append(start.elapsed_time(end) / iters)
     windows.sort()
-    return windows[len(windows) // 2], windows[0], windows[-1]
+    return windows[len(windows) // 2], windows[0], windows[-1], reps, windows
 
 
 def ms_text(t):
-    return f"{t[0]:.4f} ms (median of 5 windows; min {t[1]:.4f}, max {t[2]:.4f})"
+    return (f"{t[0]:.4f} ms (median of {t[3]} windows; min {t[1]:.4f}, "
+            f"max {t[2]:.4f})")
+
+
+# the card's peak rates for bound_ms (H100 SXM data sheet: HBM3 bytes/s,
+# fp32 operations/s outside the tensor cores)
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+# fp32 operations of the rasterizers' edge math per (face, pixel) pair:
+# w0 and w1 8 each, w2 2, depth 5 (csrc/raster.cu edge_test)
+EDGE_FLOPS = 23
+# bytes written per pixel by every rasterizer: fid, b0, b1, 16 attr planes
+PIXEL_OUT_BYTES = 19 * 4
+
+
+def bound(n_bytes, n_flops):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the fp32 operations over the fp32 rate. Returns
+    (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_flops / PEAK_FP32_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def mano_bound(batch):
+    """B4 at ``batch`` hands: coef, g_rows, basis and weights read once,
+    the vertices written once; the two products and the affine."""
+    n_bytes = 4 * (batch * 146 + batch * 192 + 146 * 3 * 778 + 16 * 778
+                   + batch * 778 * 3)
+    n_flops = batch * 778 * (2 * (146 * 3 + 12 * 16) + 18)
+    return bound(n_bytes, n_flops)
 
 
 def phase_env():
     import torch
     say("env", f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"torch CUDA {torch.version.cuda}")
-    from acr_tpu_torch.viz.raster_cuda import _nvcc
+    from acr_tpu_torch.ops.cuda_lib import nvcc as _nvcc
     nvcc = subprocess.run([_nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     say("env", f"nvcc: {nvcc[-1]}")
@@ -118,10 +156,10 @@ def phase_env():
 
 
 def phase_build():
-    from acr_tpu_torch.viz import raster_cuda as rc
+    from acr_tpu_torch.ops import cuda_lib
     t0 = time.perf_counter()
-    so, log = rc.build_extension()
-    rc._library()
+    so, log = cuda_lib.build_extension()
+    cuda_lib.library()
     dt = time.perf_counter() - t0
     say("build", f"{os.path.relpath(so, ROOT)} in {dt:.2f} s"
         + ("" if log else " (already built from these sources)"))
@@ -588,7 +626,21 @@ def phase_times(card, apps, frames):
                  else "far frame")
         say("times", f"{name} ({SIZE} px, {inv.shape[0]} faces, {scene}): "
             f"{ms_text(times[name])} [{card}]")
-    return {k: v[0] for k, v in times.items()}, errs
+    # bounds on these inputs: flat reads 26 rows per face and folds every
+    # face at every pixel; binned reads the live slots' 34 rows (table,
+    # inv, id) and folds them over their tile's pixels
+    n_faces, n_px = inv.shape[0], SIZE * SIZE
+    live = int(counts.sum())
+    bounds = {
+        "raster_flat": bound(4 * 26 * n_faces + PIXEL_OUT_BYTES * n_px,
+                             EDGE_FLOPS * n_faces * n_px),
+        "raster_binned": bound(
+            4 * (34 * live + counts.numel()) + PIXEL_OUT_BYTES * n_px,
+            EDGE_FLOPS * live * rc.ROW_TILE * col_tile)}
+    for name, (ms, by) in bounds.items():
+        say("times", f"{name} bound on these inputs: {ms:.4f} ms "
+            f"({by}; {live} live binned slots)")
+    return {k: v[0] for k, v in times.items()}, errs, bounds
 
 
 def phase_times_stream(card, weights, out_dir):
@@ -642,7 +694,374 @@ def phase_times_stream(card, weights, out_dir):
         say("times", f"{name} ({HI} px, {n} faces, the stream's frame, max "
             f"{int(args[2].max()) * rc.FACE_CHUNK} slots/tile bound): "
             f"{ms_text(times[name])} [{card}]")
-    return {k: v[0] for k, v in times.items()}, err
+    # bound on these inputs: the live band-table columns (32 rows) and
+    # tile slots read once, the live slots folded over their tile's pixels
+    table, ids_t, tilenc = args[0], args[1], args[2]
+    live_cols = int((table[:, rc.ROW_GID] >= 0).sum())
+    live_slots = int((ids_t < table.shape[2]).sum())
+    b_ms, b_by = bound(4 * (32 * live_cols + live_slots + tilenc.numel())
+                       + PIXEL_OUT_BYTES * HI * HI,
+                       EDGE_FLOPS * live_slots * rc.ROW_TILE * rc.COL_TILE)
+    say("times", f"raster_banded bound on these inputs: {b_ms:.4f} ms "
+        f"({b_by}; {live_cols} live table columns, {live_slots} live slots)")
+    return {k: v[0] for k, v in times.items()}, err, (b_ms, b_by)
+
+
+MANO_BATCHES = (1, 8, 63, 64, 65, 1024, 4096)      # kernel vs plain
+MANO_SWEEP = (8, 64, 256, 512, 1024, 4096)         # pure vs fused, threshold
+N_THROUGHPUT = 20             # 720p frames of the throughput run
+CHUNK = 8                     # val_batch_size of the throughput path
+
+
+def _mano_inputs(batch, seed, device):
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    poses = torch.from_numpy((rng.randn(batch, 48) * 0.5).astype(np.float32))
+    betas = torch.from_numpy((rng.randn(batch, 10) * 0.7).astype(np.float32))
+    return poses.to(device), betas.to(device)
+
+
+def _mano_sides(device):
+    from acr_tpu_torch.config import Config
+    from acr_tpu_torch.models.mano import load_mano_model
+    from acr_tpu_torch.ops.mano_kernel import build_kernel_data
+    sides = {}
+    for side in ("left", "right"):
+        model, _ = load_mano_model(Config().mano_model_path, side,
+                                   device=device)
+        sides[side] = (model, build_kernel_data(model))
+    return sides
+
+
+def phase_kernels_mano():
+    """B4 against its plain version on the card, both sides, at every
+    batch of MANO_BATCHES; the fused forward against the pure one; the
+    ManoAuto dispatch at the threshold."""
+    import torch
+    from acr_tpu_torch.models.mano import mano_forward
+    from acr_tpu_torch.ops import mano_kernel as mk
+    from acr_tpu_torch.pipeline import infer
+    dev = torch.device("cuda")
+    err = fwd_err = 0.0
+    sides = _mano_sides(dev)
+    for k, (model, data) in enumerate(sides.values()):
+        for batch in MANO_BATCHES:
+            poses, betas = _mano_inputs(batch, 100 * k + batch, dev)
+            coef, g_rows, _ = mk.blend_skin_operands(data, poses, betas)
+            got = mk.fused_blend_skin(data, coef, g_rows)
+            want = mk.fused_blend_skin_plain(data, coef, g_rows)
+            torch.cuda.synchronize()
+            err = max(err, float((got - want).abs().max()))
+        poses, betas = _mano_inputs(65, k, dev)
+        for center in (9, None):
+            fused = mk.mano_forward_fused(data, poses, betas, center_idx=center)
+            pure = mano_forward(model, poses, betas, center_idx=center)
+            fwd_err = max(fwd_err, *(float((a - b).abs().max()) for a, b in
+                                     zip(fused, pure) if a is not None))
+    # the sums of the kernel and of cuBLAS run in different orders, so
+    # this is a tolerance, not a bit-for-bit check
+    say("kernels", f"mano_fused vs plain, both sides, B in {MANO_BATCHES}: "
+        f"verts max abs err {err:g} (tol 1e-5, fp32 sums in another "
+        f"order); mano_forward_fused vs mano_forward (center 9 and None, "
+        f"B 65): {fwd_err:g} (tol 1e-5)")
+    if err > 1e-5 or fwd_err > 1e-5:
+        raise AssertionError("mano_fused disagrees with its plain version")
+    auto = infer.ManoAuto(*sides["right"])
+    thr = infer.PALLAS_MANO_MIN_BATCH
+    took = {}
+    for batch in (thr - 1, thr):
+        poses, betas = _mano_inputs(batch, batch, dev)
+        mk.reset_launch_counts()
+        infer._apply_mano(auto, poses, betas, 9)
+        took[batch] = mk.LAUNCHES["mano_fused"]
+    say("kernels", f"ManoAuto at PALLAS_MANO_MIN_BATCH = {thr}: mano_fused "
+        f"launches {took[thr]} at B {thr}, {took[thr - 1]} at B {thr - 1}")
+    if took != {thr - 1: 0, thr: 1}:
+        raise AssertionError(f"ManoAuto dispatch: {took}")
+    return err
+
+
+def _throughput_cfg(frames_dir, out_dir, **over):
+    from acr_tpu_torch.config import Config
+    kw = dict(input_size=SIZE, render_size=SIZE, configs_yml="",
+              centermap_conf_thresh=-1e9, demo_mode="folder",
+              inputs=frames_dir, val_batch_size=CHUNK,
+              temporal_optimization=True, use_pallas_mano="on",
+              save_dict_results=True, raster_overflow_every=1,
+              output_dir=out_dir)
+    kw.update(over)
+    return Config(**kw)
+
+
+def _write_frames(frames_dir):
+    import cv2
+    import numpy as np
+    os.makedirs(frames_dir, exist_ok=True)
+    rng = np.random.RandomState(20)
+    for i in range(N_THROUGHPUT):
+        frame = (rng.rand(*FRAME_HW, 3) * 255).astype(np.uint8)
+        cv2.imwrite(os.path.join(frames_dir, f"{i:06d}.jpg"), frame)
+
+
+def phase_throughput(weights, frames_dir, out_dir):
+    """The throughput path: ACRApp.run_folder over N_THROUGHPUT 720p
+    JPEG frames at val_batch_size 8 (three chunks, the last one padded),
+    -t, the fused MANO kernel, render 512. The launch counts are zeroed
+    just before the run and read just after it."""
+    import numpy as np
+    import torch
+    from acr_tpu_torch.ops import mano_kernel as mk
+    from acr_tpu_torch.pipeline.app import ACRApp
+    from acr_tpu_torch.viz import raster_cuda as rc
+    _write_frames(frames_dir)
+    app = ACRApp(_throughput_cfg(frames_dir, out_dir), params=weights,
+                 device="cuda")
+    state0 = [x.clone() for x in app.filter_state.right.pose]
+    rc.reset_launch_counts()
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = app.run_folder()
+    wall = time.perf_counter() - t0
+    launches = {**rc.LAUNCHES, **mk.LAUNCHES}
+    outs = os.listdir(out_dir)
+    n_jpg = sum(o.endswith(".jpg") for o in outs)
+    n_mp4 = sum(o.endswith(".mp4") for o in outs)
+    n_pkl = sum(o.endswith(".pkl") for o in outs)
+    n_chunks = -(-N_THROUGHPUT // CHUNK)
+    say("throughput", f"{len(results)} results of {N_THROUGHPUT} frames of "
+        f"{FRAME_HW[0]}x{FRAME_HW[1]} in {n_chunks} chunks of {CHUNK} "
+        f"(folder mode, -t, use_pallas_mano on, render {SIZE} px) in "
+        f"{wall:.2f} s with set-up; launches {launches}; written: {n_jpg} "
+        f"frames, {n_mp4} mp4, {n_pkl} pkl")
+    for path, hands in results.items():
+        if len(hands) != 2:
+            raise AssertionError(f"{path}: {len(hands)} hands detected")
+        for hand in hands:
+            for key, v in hand.items():
+                if not np.isfinite(np.asarray(v, np.float32)).all():
+                    raise AssertionError(f"{path}: non-finite {key}")
+    last = app.last_output
+    for key in ("verts", "j3d", "pj2d", "cam_trans", "poses", "_rgba"):
+        if not np.isfinite(last[key]).all():
+            raise AssertionError(f"non-finite {key} in the last chunk")
+    if last["_rgba"].shape[1:] != (4, SIZE, SIZE) or not last["_rgba"][:, 3].any():
+        raise AssertionError("the last chunk's render is empty")
+    st = app.filter_state
+    moved = not all(torch.equal(a, b) for a, b in zip(st.right.pose, state0))
+    if not (bool(st.left.pose.initialized) and bool(st.right.pose.initialized)
+            and moved):
+        raise AssertionError("the OneEuro state did not advance")
+    if (len(results) != N_THROUGHPUT or n_jpg != N_THROUGHPUT or n_mp4 != 1
+            or n_pkl != 1):
+        raise AssertionError("the throughput run did not write every output")
+    if launches["mano_fused"] != 4 * n_chunks:
+        raise AssertionError(f"mano_fused launched {launches['mano_fused']} "
+                             f"times, want 4 per chunk")
+    if not launches["raster_binned"]:
+        raise AssertionError("the throughput run never launched raster_binned")
+    return launches, app
+
+
+def _chunk_inputs(frames_dir, n):
+    import cv2
+    import numpy as np
+    from acr_tpu_torch.pipeline.preprocess import img_preprocess
+    names = sorted(os.listdir(frames_dir))[:n]
+    metas = [img_preprocess(cv2.imread(os.path.join(frames_dir, p)), p,
+                            input_size=SIZE) for p in names]
+    return (np.concatenate([m["image"] for m in metas]),
+            np.concatenate([m["offsets"] for m in metas]))
+
+
+def phase_device_vs_cpu_chunk(weights, frames_dir, out_dir):
+    """One chunk step with -t and the fused MANO path on the card and on
+    the CPU, same frames and weights."""
+    from acr_tpu_torch.pipeline.app import ACRApp
+    image, offsets = _chunk_inputs(frames_dir, CHUNK)
+    cfg = _throughput_cfg(frames_dir, out_dir, raster_overflow_every=0)
+    gpu = ACRApp(cfg, params=weights, device="cuda")
+    cpu = ACRApp(dataclasses.replace(cfg, renderer="none"), params=weights,
+                 device="cpu")
+    g = {k: v.cpu() for k, v in gpu.chunk_step(image, offsets).items()}
+    t0 = time.perf_counter()
+    c = cpu.chunk_step(image, offsets)
+    cpu_s = time.perf_counter() - t0
+    errs = {k: float((g[k] - c[k]).abs().max()) for k in ("verts", "j3d",
+                                                          "pj2d")}
+    state_err = max(float((a - b).abs().max()) for a, b in zip(
+        _state_leaves(gpu.filter_state), _state_leaves(cpu.filter_state)))
+    say("device_vs_cpu", f"-t, one chunk of {CHUNK} frames through "
+        f"chunk_step (use_pallas_mano on): max abs err {json.dumps(errs)}, "
+        f"OneEuro state {state_err:g} (tol 1e-4); the CPU side took "
+        f"{cpu_s:.2f} s")
+    if max(errs.values()) > 1e-4 or state_err > 1e-4:
+        raise AssertionError("chunk step: device and CPU disagree")
+
+
+def _self_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def device_profile(fn, calls=3):
+    """(device events, device ms, the events) per call of ``fn`` by
+    torch.profiler. The device's own events (kernels, copies) are
+    counted, not the operators that launched them, so no time is counted
+    twice."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA]
+    return (sum(e.count for e in events) / calls,
+            sum(_self_us(e) for e in events) / calls / 1e3, events)
+
+
+def _chunk_breakdown(card, app, image, offsets, smooth_sequence):
+    """Where the b8 chunk step's time goes: each stage alone by CUDA
+    events, and the device's busy time in one step by torch.profiler
+    (summed device-event time) against their unprofiled time."""
+    import torch
+    dev = app.pipeline.device
+    img = torch.as_tensor(image).to(dev)
+    off = torch.as_tensor(offsets, dtype=torch.float32).to(dev)
+    with torch.no_grad():
+        out = app.pipeline(img, off)
+        state = app.filter_state
+        stages = {
+            "forward": lambda: app.pipeline(img, off),
+            "oneeuro": lambda: smooth_sequence(
+                state, out["poses"], out["betas"], out["detection_flag"],
+                app.cfg.smooth_coeff),
+            "refine": lambda: app.pipeline.refine(out["poses"], out["betas"],
+                                                  out["cam"], off),
+            "renders": lambda: [app.visualizer.render_rgba_device(out, k)
+                                for k in range(CHUNK)],
+        }
+        for name, fn in stages.items():
+            say("times", f"b{CHUNK} chunk step stage {name}: "
+                f"{ms_text(cuda_ms(fn, iters=5, reps=3, warmup=1))} [{card}]")
+    step = lambda: app.chunk_step(image, offsets)
+    unprofiled = cuda_ms(step, iters=3, reps=3, warmup=1)[0]
+    n_events, busy, events = device_profile(step, calls=1)
+    top = sorted(events, key=_self_us, reverse=True)[:5]
+    say("times", f"b{CHUNK} chunk step under torch.profiler: {n_events:.0f} "
+        f"device events per step, device busy {busy:.3f} ms per step "
+        f"against {unprofiled:.3f} ms unprofiled (idle share "
+        f"{1 - busy / unprofiled:.3f}); top device events (ms per step): "
+        + "; ".join(f"{e.key[:60]} {_self_us(e) / 1e3:.3f}" for e in top)
+        + f" [{card}]")
+
+
+def phase_times_throughput(card, weights, frames_dir, app):
+    """The b8 chunk step (with and without -t, fused MANO on and off),
+    the folder-mode frame rate over warmed chunks, and B4 against its
+    plain version, its yardstick and the pure MANO forward."""
+    import torch
+    from acr_tpu_torch.models.mano import mano_forward
+    from acr_tpu_torch.ops import mano_kernel as mk
+    from acr_tpu_torch.pipeline import infer
+    from acr_tpu_torch.pipeline.app import ACRApp
+    from acr_tpu_torch.pipeline.temporal import smooth_sequence
+    from acr_tpu_torch.utils.meters import StageTimer
+    times = {}
+    image, offsets = _chunk_inputs(frames_dir, CHUNK)
+    for t in (True, False):
+        for mode in ("on", "off"):
+            chunk_app = ACRApp(_throughput_cfg(
+                frames_dir, None, temporal_optimization=t,
+                use_pallas_mano=mode, raster_overflow_every=0),
+                params=weights, device="cuda")
+            name = f"chunk_step_t{int(t)}_{mode}"
+            times[name] = cuda_ms(lambda: chunk_app.chunk_step(image, offsets),
+                                  iters=3, reps=3, warmup=1)
+            say("times", f"b{CHUNK} fp32 chunk step (forward{' + OneEuro + '
+                'refine' if t else ''} + {CHUNK} renders at {SIZE} px), "
+                f"use_pallas_mano {mode}: {ms_text(times[name])} [{card}]")
+            if t and mode == "on":
+                _chunk_breakdown(card, chunk_app, image, offsets,
+                                 smooth_sequence)
+            del chunk_app
+
+    # folder mode by host wall over warmed chunks: the throughput app
+    # again, its timer reset
+    from acr_tpu_torch.io.writers import collect_image_list
+    files = collect_image_list(frames_dir)
+    app.timer = StageTimer()
+    t0 = time.perf_counter()
+    app._run_batched(files)
+    wall = time.perf_counter() - t0
+    report = {k: round(v["avg_ms"], 3) for k, v in app.timer.report().items()}
+    say("times", f"folder mode, {len(files)} warmed {FRAME_HW[0]}x"
+        f"{FRAME_HW[1]} frames at val_batch_size {CHUNK} (decode, chunk "
+        f"step, readback, composite, write): {len(files) / wall:.3f} "
+        f"frames/s ({wall:.3f} s); StageTimer avg ms {json.dumps(report)} "
+        f"[{card}]")
+
+    dev = torch.device("cuda")
+    model, data = _mano_sides(dev)["right"]
+    basis2d = data.basis.reshape(mk.N_COEF, -1)
+    for batch in (8, 16, 1024):
+        poses, betas = _mano_inputs(batch, batch, dev)
+        coef, g_rows, _ = mk.blend_skin_operands(data, poses, betas)
+        for name, fn in (
+                ("mano_fused", lambda: mk.fused_blend_skin(data, coef, g_rows)),
+                ("mano_fused_plain",
+                 lambda: mk.fused_blend_skin_plain(data, coef, g_rows)),
+                ("mano_library", lambda: (torch.matmul(coef, basis2d),
+                                          torch.matmul(g_rows,
+                                                       data.weights_t)))):
+            times[f"{name}_{batch}"] = cuda_ms(fn, iters=50)
+            say("times", f"{name} at B {batch}: "
+                f"{ms_text(times[f'{name}_{batch}'])} [{card}]")
+        b_ms, b_by = mano_bound(batch)
+        say("times", f"mano_fused bound at B {batch}: {b_ms:.5f} ms ({b_by})")
+
+    # the switch point. Both paths are bound by their launches at small
+    # B, where the host's noise between windows is as large as their
+    # difference: each path is timed twice by CUDA events, in the order
+    # pure, fused, fused, pure, and its device events and device time
+    # per call are counted by torch.profiler. The fused path is no slower
+    # where it launches no more and its device time is no longer.
+    sweep = {}
+    for batch in MANO_SWEEP:
+        poses, betas = _mano_inputs(batch, batch, dev)
+        fns = {"pure": lambda: mano_forward(model, poses, betas),
+               "fused": lambda: mk.mano_forward_fused(data, poses, betas)}
+        windows = {"pure": [], "fused": []}
+        for name in ("pure", "fused", "fused", "pure"):
+            windows[name] += cuda_ms(fns[name], iters=10, reps=3,
+                                     warmup=1)[4]
+        med = {k: sorted(w)[len(w) // 2] for k, w in windows.items()}
+        prof = {k: device_profile(fn)[:2] for k, fn in fns.items()}
+        sweep[batch] = (med, prof)
+        say("times", f"MANO forward at B {batch} hands (CUDA events, median "
+            "of 6 windows [min, max]; torch.profiler, per call): " + "; ".join(
+                f"{k} {med[k]:.4f} [{min(windows[k]):.4f}, "
+                f"{max(windows[k]):.4f}] ms, {prof[k][0]:.0f} device events, "
+                f"{prof[k][1]:.4f} ms device time" for k in fns)
+            + f" [{card}]")
+
+    def switch(no_slower):
+        ok = [b for b in MANO_SWEEP
+              if all(no_slower(c) for c in MANO_SWEEP if c >= b)]
+        return ok[0] if ok else "never"
+    by_device = switch(lambda b: all(
+        f <= p for f, p in zip(sweep[b][1]["fused"], sweep[b][1]["pure"])))
+    by_wall = switch(lambda b: sweep[b][0]["fused"] <= sweep[b][0]["pure"])
+    say("times", f"the fused path launches no more and has no more device "
+        f"time than the pure one at every B of the sweep {MANO_SWEEP} from "
+        f"B = {by_device}; its CUDA-event median is no slower from B = "
+        f"{by_wall} (PALLAS_MANO_MIN_BATCH is {infer.PALLAS_MANO_MIN_BATCH}) "
+        f"[{card}]")
+    return {k: v[0] for k, v in times.items()}
 
 
 def main():
@@ -657,34 +1076,47 @@ def main():
     phase_build()
     kin = phase_kernels()
     banded_err = phase_kernels_banded()
+    mano_err = phase_kernels_mano()
     out_dir = os.path.join(ROOT, "build", "chip_smoke_out")
     launches, apps, frames = phase_main(out_dir)
     weights = _weights(CAM_SCALE["near"])
     stream_launches = phase_stream(weights, os.path.join(out_dir, "stream"))
     phase_device_vs_cpu(apps, frames)
     phase_device_vs_cpu_t(weights, os.path.join(out_dir, "t"))
-    times, errs = phase_times(card, apps, frames)
-    stimes, stream_err = phase_times_stream(card, weights,
-                                            os.path.join(out_dir, "times"))
+    times, errs, bounds = phase_times(card, apps, frames)
+    stimes, stream_err, bounds["raster_banded"] = phase_times_stream(
+        card, weights, os.path.join(out_dir, "times"))
+    frames_dir = os.path.join(out_dir, "throughput_frames")
+    t_launches, t_app = phase_throughput(
+        weights, frames_dir, os.path.join(out_dir, "throughput") + "/")
+    phase_device_vs_cpu_chunk(weights, frames_dir,
+                              os.path.join(out_dir, "chunk") + "/")
+    ttimes = phase_times_throughput(card, weights, frames_dir, t_app)
+    # B4 at the throughput path's shape: 8 hands per launch
+    bounds["mano_fused"] = mano_bound(CHUNK)
     src = "acr_tpu_torch/csrc/raster.cu"
+    entry = lambda name, replaces, source, n, err, ms, plain_ms, lib_ms: {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1], "library_ms": lib_ms}
     print(json.dumps({"kernels": [
-        {"name": "raster_flat", "route": "cuda", "source": src,
-         "replaces": "acr_tpu/viz/raster_pallas.py:106",
-         "launches": launches["raster_flat"],
-         "max_abs_err": max(kin["flat_err"], errs["raster_flat"]),
-         "ms": times["raster_flat"], "plain_ms": times["raster_flat_plain"]},
-        {"name": "raster_binned", "route": "cuda", "source": src,
-         "replaces": "acr_tpu/viz/raster_pallas.py:193",
-         "launches": launches["raster_binned"],
-         "max_abs_err": max(kin["binned_err"], errs["raster_binned"]),
-         "ms": times["raster_binned"],
-         "plain_ms": times["raster_binned_plain"]},
-        {"name": "raster_banded", "route": "cuda", "source": src,
-         "replaces": "acr_tpu/viz/raster_pallas.py:298",
-         "launches": stream_launches["raster_banded"],
-         "max_abs_err": max(banded_err, stream_err),
-         "ms": stimes["raster_banded"],
-         "plain_ms": stimes["raster_banded_plain"]},
+        entry("raster_flat", "acr_tpu/viz/raster_pallas.py:106", src,
+              launches["raster_flat"],
+              max(kin["flat_err"], errs["raster_flat"]),
+              times["raster_flat"], times["raster_flat_plain"], None),
+        entry("raster_binned", "acr_tpu/viz/raster_pallas.py:193", src,
+              launches["raster_binned"],
+              max(kin["binned_err"], errs["raster_binned"]),
+              times["raster_binned"], times["raster_binned_plain"], None),
+        entry("raster_banded", "acr_tpu/viz/raster_pallas.py:298", src,
+              stream_launches["raster_banded"], max(banded_err, stream_err),
+              stimes["raster_banded"], stimes["raster_banded_plain"], None),
+        entry("mano_fused", "acr_tpu/ops/mano_kernel.py:88",
+              "acr_tpu_torch/csrc/mano.cu", t_launches["mano_fused"],
+              mano_err, ttimes[f"mano_fused_{CHUNK}"],
+              ttimes[f"mano_fused_plain_{CHUNK}"],
+              ttimes[f"mano_library_{CHUNK}"]),
     ]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

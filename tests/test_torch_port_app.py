@@ -77,7 +77,8 @@ def test_process_frame_matches_jax(flat, tmp_path):
     jout = japp.pipeline(meta["image"], meta["offsets"])
     want_rgba = np.asarray(japp.visualizer.render_rgba_device(jout))
 
-    app = ACRApp(Config(**_kw(tmp_path, "port")), params=from_flax(flat))
+    app = ACRApp(Config(**_kw(tmp_path, "port")), params=from_flax(flat),
+                 device="cpu")
     got = app.process_frame(frame, path)
     got_rgba = app.last_output["_rgba"]
 

@@ -34,7 +34,8 @@ def test_port_reproduces_golden_fixture():
         lambda p, x: x * 0.2 if getattr(p[-1], "key", None) == "scale" else x,
         params)
     cfg = Config(input_size=128, mano_model_path=MANO_DIR, configs_yml="")
-    pipe = ACRPipeline(cfg, params=from_flax(flatten_params(params)))
+    pipe = ACRPipeline(cfg, params=from_flax(flatten_params(params)),
+                       device="cpu")
     rng = np.random.RandomState(42)
     img = (rng.rand(1, 128, 128, 3) * 255).astype(np.uint8)
     off = np.array([[128, 128, 0, 0, 0, 0, 0, 0, 0, 0]], np.float32)

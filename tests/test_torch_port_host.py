@@ -118,10 +118,9 @@ def test_meters_and_capture_copies_equal(module_pair, names):
     (dict(quantize="int8"), "A13"),
     (dict(data_parallel=2), "A14"),
     (dict(renderer="native"), "A15"),
-    (dict(use_pallas_mano="on"), "A12"),
-    (dict(demo_mode="video", val_batch_size=4), "A9b"),
-    (dict(demo_mode="folder", val_batch_size=2), "A9b"),
     (dict(show_items=("mesh", "pj2d")), "A10"),
+    (dict(demo_mode="folder", val_batch_size=2, model_precision="bf16"),
+     "A6"),
 ])
 def test_unported_options_raise(override, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -134,10 +133,22 @@ def test_unported_options_raise(override, item):
                                    render_size=2048, interactive_vis=True))
 
 
+@pytest.mark.parametrize("override", [
+    dict(use_pallas_mano="on"),
+    dict(demo_mode="video", val_batch_size=4, temporal_optimization=True),
+    dict(demo_mode="folder", val_batch_size=2),
+])
+def test_throughput_options_accepted(override):
+    # the throughput slice: the fused MANO kernel and video/folder mode
+    # at val_batch_size > 1 (ROADMAP A12, A9b) run now
+    check_slice(tconfig.Config(**override))
+
+
 def test_cli_rejects_unported_mode_before_loading():
     from acr_tpu_torch.cli import main
-    with pytest.raises(NotImplementedError, match="A9b"):
+    with pytest.raises(NotImplementedError, match="A6"):
         main(["--demo_mode", "video", "--val_batch_size", "2",
+              "--model_precision", "bf16",
               "--model_path", "/nonexistent.npz", "--device", "cpu"])
 
 
@@ -155,9 +166,11 @@ def test_no_module_imports_jax():
         "assert not bad, bad\n"
         "new = {'acr_tpu_torch.pipeline.' + m for m in\n"
         "       ('temporal', 'streaming', 'capture')}\n"
-        "assert new | {'acr_tpu_torch.utils.meters'} <= set(names), names\n"
+        "new |= {'acr_tpu_torch.utils.meters', 'acr_tpu_torch.utils.device',\n"
+        "        'acr_tpu_torch.ops.mano_kernel', 'acr_tpu_torch.ops.cuda_lib'}\n"
+        "assert new <= set(names), names\n"
         "print(len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 31
+    assert int(proc.stdout.strip()) >= 34

@@ -5,7 +5,12 @@
   148-152); port and JAX must give the same pixels.
 * The CLI's ``--device`` is ``cuda`` unless ``--device cpu`` is given,
   and without a card it raises instead of falling back to the CPU.
+
+And the repair of the throughput slice: ``ACRApp``, ``ACRPipeline`` and
+``Visualizer`` default to the card in the same way.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -18,6 +23,7 @@ from acr_tpu_torch.pipeline.preprocess import img_preprocess
 from acr_tpu_torch.viz.visualizer import Visualizer
 
 torch.set_num_threads(2)
+MANO_DIR = os.path.join(os.path.dirname(__file__), "..", "model_data", "mano")
 
 
 @pytest.mark.parametrize("render_size,case", [
@@ -36,7 +42,7 @@ def test_paste_back_matches_jax(render_size, case):
                     ).astype(np.uint8)
     want = JaxVisualizer(JaxConfig(render_size=render_size), faces
                          ).paste_back(rendered, frame, offsets)
-    got = Visualizer(Config(render_size=render_size), faces
+    got = Visualizer(Config(render_size=render_size), faces, device="cpu"
                      ).paste_back(rendered, frame, offsets)
     scale = 4 if render_size > 1000 else 1
     assert got.shape == want.shape == (frame.shape[0] * scale,
@@ -54,3 +60,46 @@ def test_cli_raises_without_a_card(device_args, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         main(["--demo_mode", "image", "--inputs", "x.jpg",
               "--model_path", "/nonexistent.npz", *device_args])
+
+
+@pytest.fixture(scope="module")
+def seeded_params():
+    from acr_tpu_torch.io.params import init_params
+    return init_params(torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("entry", ["ACRApp", "ACRPipeline", "Visualizer"])
+def test_entry_points_run_on_the_card_by_default(entry, seeded_params,
+                                                 monkeypatch, tmp_path):
+    """Repair C3: the library entry points default to ``device="cuda"``
+    and raise without a card; the CPU runs only when asked for."""
+    import inspect
+    from acr_tpu_torch.pipeline.app import ACRApp
+    from acr_tpu_torch.pipeline.infer import ACRPipeline
+    cls = {"ACRApp": ACRApp, "ACRPipeline": ACRPipeline,
+           "Visualizer": Visualizer}[entry]
+    assert inspect.signature(cls).parameters["device"].default == "cuda"
+    cfg = Config(input_size=128, render_size=128, configs_yml="",
+                 mano_model_path=MANO_DIR, centermap_conf_thresh=-1e9,
+                 output_dir=str(tmp_path) + "/")
+    make = {"ACRApp": lambda **kw: ACRApp(cfg, params=seeded_params, **kw),
+            "ACRPipeline": lambda **kw: ACRPipeline(cfg, params=seeded_params,
+                                                    **kw),
+            "Visualizer": lambda **kw: Visualizer(
+                cfg, np.zeros((2, 1538, 3), np.int32), **kw)}[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        make()
+    obj = make(device="cpu")
+    if entry == "Visualizer":
+        assert obj.faces.device.type == "cpu"
+        return
+    pipe = obj.pipeline if entry == "ACRApp" else obj
+    assert pipe.device.type == "cpu"
+    assert next(pipe.net.parameters()).device.type == "cpu"
+    if entry == "ACRApp":
+        frame = (np.random.RandomState(3).rand(96, 128, 3) * 255
+                 ).astype(np.uint8)
+        results = obj.process_frame(frame, "frame.jpg")
+        assert len(results["frame.jpg"]) == 2
+        assert obj.last_output["_rgba"].shape == (4, 128, 128)

@@ -72,7 +72,8 @@ def state_leaves(state):
 def test_streaming_loop_matches_jax(flat, tmp_path):
     japp = JaxACRApp(JaxConfig(**_kw(tmp_path, "jax")),
                      params=unflatten_params(flat))
-    app = ACRApp(Config(**_kw(tmp_path, "port")), params=from_flax(flat))
+    app = ACRApp(Config(**_kw(tmp_path, "port")), params=from_flax(flat),
+                 device="cpu")
     want, got = [], []
     n_j = JaxStreamingLoop(japp, on_result=lambda img, out: want.append(
         (img, out))).run(JaxSyntheticSource(4))
@@ -121,7 +122,8 @@ def test_folder_mode_matches_jax(flat, tmp_path, frames_dir):
     japp = JaxACRApp(JaxConfig(**_kw(tmp_path, "jax", **kw)),
                      params=unflatten_params(flat))
     want = japp.run()
-    app = ACRApp(Config(**_kw(tmp_path, "port", **kw)), params=from_flax(flat))
+    app = ACRApp(Config(**_kw(tmp_path, "port", **kw)), params=from_flax(flat),
+                 device="cpu")
     got = app.run()
     assert len(got) == 3
     assert_same_results(got, want)
@@ -137,7 +139,9 @@ def test_folder_mode_matches_jax(flat, tmp_path, frames_dir):
     for a, b in zip(state_leaves(app.filter_state),
                     jax.tree.leaves(japp.filter_state)):
         np.testing.assert_allclose(a, np.asarray(b), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="A9b"):
+    # an option still unported at val_batch_size > 1 raises, naming its item
+    with pytest.raises(NotImplementedError, match="A10"):
         ACRApp(Config(**_kw(tmp_path, "b2", demo_mode="folder",
-                            inputs=frames_dir, val_batch_size=2)),
-               params=from_flax(flat))
+                            inputs=frames_dir, val_batch_size=2,
+                            show_items=("mesh", "pj2d"))),
+               params=from_flax(flat), device="cpu")
