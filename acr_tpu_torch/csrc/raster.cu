@@ -25,17 +25,33 @@
 // whose elementwise ops round each result. A contracted FMA could move a
 // depth across a tie and change the winning face.
 //
-// What bounds them on this card: the flat kernel does about 20 fp32
-// operations per face per pixel (3200 faces x 262144 pixels at 512 px,
-// about 17 GFLOP without FMA), so it is bound by fp32 issue rate; the
-// face rows it reads are the same for every thread of a block at each
-// step, which the L1 cache serves as broadcasts. The binned kernel does
-// the same work over a tile's live count only (a few hundred faces at
-// most), so at 512 px it is bound by launch latency and by the tiles
-// with the most faces. The design is the simple one: one thread per
-// pixel, the running z-buffer, winner and barycentrics in registers,
-// no shared-memory staging.
+// What bounds them on this card: about 23 fp32 operations per face per
+// pixel of the edge math. Brute force, the flat kernel's TPU original folds
+// every face at every pixel (3200 faces x 262144 pixels at 512 px, about
+// 19 GFLOP), yet on a frame of small hands a face's bbox covers a few
+// pixels. So the flat kernel culls, per tile of 8 x 128 pixels, and folds
+// only the faces whose bbox reaches the tile. Culled work is uneven: a tile
+// over a small far hand keeps several hundred faces while most tiles keep
+// none, and one block per tile would leave the densest tile's whole fold
+// to one SM while the others idle. So a tile is a cluster of kFlatCluster
+// blocks on neighbouring SMs that split its faces: block r takes the
+// chunks r, r + 8, r + 16, ... of kFlatChunk faces, tests each face's bbox
+// against the tile (one thread per face), compacts the survivors with a
+// warp ballot and a prefix count, in ascending id order, into shared
+// memory, and folds them over all the tile's pixels (4 per thread). Each
+// block's fold is then the first minimum in ascending order over its
+// faces, that is the least (depth, id); each block writes row r of its
+// result into block r's shared memory (distributed shared memory), and
+// after a cluster barrier block r merges row r over the eight blocks by
+// the same order. That is the winner, barycentrics included, of one
+// ascending fold over all faces. It is bound by the live (face, tile)
+// pairs it folds
+// and by reading each face's rows once per tile. The binned kernel does
+// the same work over a tile's prestaged list (a few hundred faces at
+// most), one thread per pixel, so at 512 px it is bound by launch latency
+// and by the tiles with the most faces.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -74,45 +90,171 @@ __device__ __forceinline__ Hit edge_test(float gx, float gy, float ax,
   return h;
 }
 
+// The flat kernel's tile: kFlatRows x kFlatCols pixels, one cluster of
+// kFlatCluster blocks of kFlatThreads threads, kFlatPx pixels per thread.
+constexpr int kFlatRows = 8;
+constexpr int kFlatCols = 128;
+constexpr int kFlatCluster = 8;   // = kFlatRows: block r merges row r
+constexpr int kFlatThreads = 256;
+constexpr int kFlatPx = kFlatRows * kFlatCols / kFlatThreads;  // 4 rows
+constexpr int kFlatChunk = 256;   // faces a block culls at a time
+
+// Whether a face can win at a pixel centre of the rectangle [x0, x1] x
+// [y0, y1]: the inclusive bbox test of the binned prestage (_tile_overlap
+// in acr_tpu_torch/viz/raster_cuda.py, whose pixel centres lie 0.5 px
+// inside the bounds), on a live face (inv != 0) whose six screen
+// coordinates are not NaN. A face that fails it is inside no pixel centre
+// of the tile (a NaN coordinate makes the edge test fail too), so
+// dropping it changes no winner.
+__device__ __forceinline__ bool face_reaches(float ax, float ay, float bx,
+                                             float by, float cx, float cy,
+                                             float inv, float x0, float x1,
+                                             float y0, float y1) {
+  if (inv == 0.0f || isnan(ax) || isnan(ay) || isnan(bx) || isnan(by) ||
+      isnan(cx) || isnan(cy))
+    return false;
+  return fminf(fminf(ax, bx), cx) <= x1 && fmaxf(fmaxf(ax, bx), cx) >= x0 &&
+         fminf(fminf(ay, by), cy) <= y1 && fmaxf(fmaxf(ay, by), cy) >= y0;
+}
+
 // tri: (9, F) rows ax ay az bx by bz cx cy cz; inv: (F,); attrs: (16, F).
-// Outputs (H, W) fid / b0 / b1 and (16, H, W) attribute planes.
-__global__ void raster_flat_kernel(const float* __restrict__ tri,
-                                   const float* __restrict__ inv,
-                                   const float* __restrict__ attrs,
-                                   int n_faces, int height, int width,
-                                   int* __restrict__ fid_out,
-                                   float* __restrict__ b0_out,
-                                   float* __restrict__ b1_out,
-                                   float* __restrict__ attr_out) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  if (x >= width || y >= height) return;
-  const float gx = __fadd_rn((float)x, 0.5f);
-  const float gy = __fadd_rn((float)y, 0.5f);
+// Outputs (H, W) fid / b0 / b1 and (16, H, W) attribute planes. Grid
+// (kFlatCluster ceil(W / 128), ceil(H / 8)); the ragged edge is computed
+// and masked at the store, since every block takes part in every barrier.
+__global__ void __cluster_dims__(kFlatCluster, 1, 1)
+    __launch_bounds__(kFlatThreads)
+        raster_flat_kernel(const float* __restrict__ tri,
+                           const float* __restrict__ inv,
+                           const float* __restrict__ attrs, int n_faces,
+                           int height, int width, int* __restrict__ fid_out,
+                           float* __restrict__ b0_out,
+                           float* __restrict__ b1_out,
+                           float* __restrict__ attr_out) {
+  namespace cg = cooperative_groups;
+  // a surviving face: (ax ay az bx) (by bz cx cy) (cz inv - -), its id
+  __shared__ float4 s_face[kFlatChunk][3];
+  __shared__ int s_id[kFlatChunk];
+  __shared__ int s_warp_live[kFlatThreads / 32];
+  // tile row `rank` as each block folded it (the bits of depth, face id,
+  // b0, b1), written by that block, and whether it drew any pixel at all
+  __shared__ int4 s_row[kFlatCluster][kFlatCols];
+  __shared__ int s_drew[kFlatCluster];
+  cg::cluster_group cluster = cg::this_cluster();
+  // every block of the cluster must run before one writes into another's
+  // shared memory: arrive now, wait just before the writes
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int x0 = (blockIdx.x / kFlatCluster) * kFlatCols;
+  const int y0 = blockIdx.y * kFlatRows;
+  const float rx0 = (float)x0, rx1 = (float)(x0 + kFlatCols);
+  const float ry0 = (float)y0, ry1 = (float)(y0 + kFlatRows);
+  const int col = tid % kFlatCols, row0 = (tid / kFlatCols) * kFlatPx;
+  const float gx = __fadd_rn((float)(x0 + col), 0.5f);
   const int F = n_faces;
 
-  float zbuf = CUDART_INF_F;
-  int best = -1;
-  float bb0 = 0.0f, bb1 = 0.0f;
-  for (int f = 0; f < F; ++f) {
-    const float iv = inv[f];
-    const Hit h = edge_test(gx, gy, tri[f], tri[F + f], tri[2 * F + f],
-                            tri[3 * F + f], tri[4 * F + f], tri[5 * F + f],
-                            tri[6 * F + f], tri[7 * F + f], tri[8 * F + f], iv);
-    if (h.inside && h.depth < zbuf) {
-      zbuf = h.depth;
-      best = f;
-      bb0 = h.w0;
-      bb1 = h.w1;
+  float gy[kFlatPx], zbuf[kFlatPx], bb0[kFlatPx], bb1[kFlatPx];
+  int best[kFlatPx];
+#pragma unroll
+  for (int m = 0; m < kFlatPx; ++m) {
+    gy[m] = __fadd_rn((float)(y0 + row0 + m), 0.5f);
+    zbuf[m] = CUDART_INF_F;
+    best[m] = -1;
+    bb0[m] = bb1[m] = 0.0f;
+  }
+  for (int c0 = rank * kFlatChunk; c0 < F; c0 += kFlatCluster * kFlatChunk) {
+    const int f = c0 + tid;
+    float ax = 0.0f, ay = 0.0f, bx = 0.0f, by = 0.0f, cx = 0.0f, cy = 0.0f;
+    float iv = 0.0f;
+    bool keep = false;
+    if (f < F) {
+      ax = tri[f];
+      ay = tri[F + f];
+      bx = tri[3 * F + f];
+      by = tri[4 * F + f];
+      cx = tri[6 * F + f];
+      cy = tri[7 * F + f];
+      iv = inv[f];
+      keep = face_reaches(ax, ay, bx, by, cx, cy, iv, rx0, rx1, ry0, ry1);
+    }
+    const unsigned live = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) s_warp_live[warp] = __popc(live);
+    __syncthreads();
+    int base = 0, n = 0;
+#pragma unroll
+    for (int w = 0; w < kFlatThreads / 32; ++w) {
+      const int c = s_warp_live[w];
+      base += w < warp ? c : 0;
+      n += c;
+    }
+    if (keep) {  // ascending id order: warps in order, lanes in order
+      const int s = base + __popc(live & ((1u << lane) - 1u));
+      s_face[s][0] = make_float4(ax, ay, tri[2 * F + f], bx);
+      s_face[s][1] = make_float4(by, tri[5 * F + f], cx, cy);
+      s_face[s][2] = make_float4(tri[8 * F + f], iv, 0.0f, 0.0f);
+      s_id[s] = f;
+    }
+    __syncthreads();
+    for (int s = 0; s < n; ++s) {
+      const float4 p = s_face[s][0], q = s_face[s][1], r = s_face[s][2];
+#pragma unroll
+      for (int m = 0; m < kFlatPx; ++m) {
+        const Hit h = edge_test(gx, gy[m], p.x, p.y, p.z, p.w, q.x, q.y, q.z,
+                                q.w, r.x, r.y);
+        if (h.inside && h.depth < zbuf[m]) {
+          zbuf[m] = h.depth;
+          best[m] = s_id[s];
+          bb0[m] = h.w0;
+          bb1[m] = h.w1;
+        }
+      }
+    }
+    __syncthreads();  // the next chunk overwrites the list
+  }
+  // send tile row r of this block's fold to block r (a block that drew
+  // nothing sends only that)
+  bool any = false;
+#pragma unroll
+  for (int m = 0; m < kFlatPx; ++m) any |= best[m] >= 0;
+  const int drew = __syncthreads_or(any);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (drew) {
+#pragma unroll
+    for (int m = 0; m < kFlatPx; ++m)
+      cluster.map_shared_rank(&s_row[0][0], row0 + m)[rank * kFlatCols + col] =
+          make_int4(__float_as_int(zbuf[m]), best[m], __float_as_int(bb0[m]),
+                    __float_as_int(bb1[m]));
+  }
+  if (tid < kFlatCluster) *cluster.map_shared_rank(&s_drew[rank], tid) = drew;
+  cluster.sync();
+
+  // block r merges tile row r: the least (depth, id) over the blocks
+  if (tid < kFlatCols) {
+    float z = 0.0f, w0 = 0.0f, w1 = 0.0f;
+    int id = -1;
+#pragma unroll
+    for (int b = 0; b < kFlatCluster; ++b) {
+      if (!s_drew[b]) continue;
+      const int4 e = s_row[b][tid];
+      const float ez = __int_as_float(e.x);
+      if (e.y >= 0 && (id < 0 || ez < z || (ez == z && e.y < id))) {
+        z = ez;
+        id = e.y;
+        w0 = __int_as_float(e.z);
+        w1 = __int_as_float(e.w);
+      }
+    }
+    const int x = x0 + tid, y = y0 + rank;
+    if (x < width && y < height) {
+      const long long hw = (long long)height * width;
+      const long long p = (long long)y * width + x;
+      fid_out[p] = id;
+      b0_out[p] = w0;
+      b1_out[p] = w1;
+      for (int r = 0; r < kNAttr; ++r)
+        attr_out[r * hw + p] = id >= 0 ? attrs[(long long)r * F + id] : 0.0f;
     }
   }
-  const long long hw = (long long)height * width;
-  const long long p = (long long)y * width + x;
-  fid_out[p] = best;
-  b0_out[p] = bb0;
-  b1_out[p] = bb1;
-  for (int r = 0; r < kNAttr; ++r)
-    attr_out[r * hw + p] = best >= 0 ? attrs[(long long)r * F + best] : 0.0f;
 }
 
 // counts: (T,) live slots per tile; tri_t: (T, 32, cap) rows 0..8 the
@@ -244,8 +386,9 @@ extern "C" {
 int acr_raster_flat(const float* tri, const float* inv, const float* attrs,
                     int n_faces, int height, int width, int* fid, float* b0,
                     float* b1, float* attr_out, void* stream) {
-  const dim3 grid((width + kBlock - 1) / kBlock, height);
-  raster_flat_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+  const dim3 grid((width + kFlatCols - 1) / kFlatCols * kFlatCluster,
+                  (height + kFlatRows - 1) / kFlatRows);
+  raster_flat_kernel<<<grid, kFlatThreads, 0, (cudaStream_t)stream>>>(
       tri, inv, attrs, n_faces, height, width, fid, b0, b1, attr_out);
   return (int)cudaGetLastError();
 }

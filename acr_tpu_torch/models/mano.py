@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from acr_tpu_torch.ops.rotations import axis_angle_to_rotmat
+from acr_tpu_torch.utils.device import resolve_device
 
 # fingertip vertex ids (reference: mano/manolayer.py:244-247)
 TIPS_RIGHT = (745, 317, 444, 556, 673)
@@ -45,9 +46,12 @@ class ManoModel(NamedTuple):
     tips: torch.Tensor          # (5,) int64 fingertip vertex ids
 
 
-def load_mano_model(mano_dir: str, side: str, device=None,
+def load_mano_model(mano_dir: str, side: str, device="cuda",
                     dtype=torch.float32) -> Tuple[ManoModel, np.ndarray]:
-    """Load one hand side from ``mano_{side}.npz``. Returns (model, faces[1538,3])."""
+    """Load one hand side from ``mano_{side}.npz`` onto ``device`` (the
+    card unless ``device="cpu"``; raises without a card). Returns (model,
+    faces[1538,3])."""
+    device = resolve_device(device)
     with np.load(os.path.join(mano_dir, f"mano_{side}.npz")) as d:
         t = lambda k: torch.as_tensor(np.asarray(d[k]), dtype=dtype,
                                       device=device)

@@ -22,12 +22,15 @@ vertices, and the kernel takes any batch.
 
 ``fused_blend_skin`` runs ``fused_blend_skin_plain`` for tensors on the
 CPU and launches the kernel for CUDA tensors, or raises; it never falls
-back. ``LAUNCHES`` counts kernel launches.
+back. ``launch_shape`` gives the kernel's grid for the Python int B,
+with no sync. Every operand is checked on every call. ``LAUNCHES``
+counts kernel launches.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,8 +44,13 @@ from acr_tpu_torch.ops import cuda_lib
 
 N_VERTS = 778
 N_COEF = 146           # 1 + 10 betas + 135 pose-map entries
-HANDS_PER_BLOCK = 4    # kHands in csrc/mano.cu
-MAX_BATCH = 65535 * HANDS_PER_BLOCK    # the launch grid's y limit
+# the launch of csrc/mano.cu: HANDS hands and VERTS vertices per block of
+# THREADS threads (the 146 coefficients split over its 8 warps)
+HANDS = 8
+VERTS = 32
+THREADS = 256
+MAX_GRID_Y = 65535
+MAX_BATCH = MAX_GRID_Y * HANDS
 
 # kernel launches since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {"mano_fused": 0}
@@ -51,6 +59,25 @@ LAUNCHES: Dict[str, int] = {"mano_fused": 0}
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+class ManoLaunch(NamedTuple):
+    """One launch of the fused kernel."""
+    hands: int                 # hands per block
+    verts: int                 # vertices per block
+    threads: int               # threads per block
+    grid: Tuple[int, int]      # (vertex tiles, hand tiles)
+
+
+def launch_shape(batch: int) -> ManoLaunch:
+    """The launch for ``batch`` hands; raises above ``MAX_BATCH``."""
+    if batch < 1:
+        raise ValueError(f"launch_shape: batch {batch} < 1")
+    grid = (math.ceil(N_VERTS / VERTS), math.ceil(batch / HANDS))
+    if grid[1] > MAX_GRID_Y:
+        raise ValueError(f"fused_blend_skin: {batch} hands is above the "
+                         f"launch limit of {MAX_BATCH}")
+    return ManoLaunch(HANDS, VERTS, THREADS, grid)
 
 
 class ManoKernelData(NamedTuple):
@@ -76,14 +103,16 @@ def build_kernel_data(model: ManoModel) -> ManoKernelData:
         hands_mean=model.hands_mean, tips=model.tips)
 
 
-def _check_operands(data: ManoKernelData, coef: torch.Tensor,
-                    g_rows: torch.Tensor) -> None:
-    dev, b = coef.device, coef.shape[0]
-    for name, t, shape in (("coef", coef, (b, N_COEF)),
-                           ("g_rows", g_rows, (b * 12, 16)),
-                           ("basis", data.basis, (N_COEF, 3, N_VERTS)),
-                           ("weights_t", data.weights_t, (16, N_VERTS))):
-        cuda_lib.check(name, t, torch.float32, shape, dev)
+def _check_constants(data: ManoKernelData, dev: torch.device) -> None:
+    """Check ``basis`` and ``weights_t``: dtype, shape, device, contiguity
+    and, on the card, the kernel's alignment."""
+    cuda_lib.check("basis", data.basis, torch.float32, (N_COEF, 3, N_VERTS),
+                   dev)
+    cuda_lib.check("weights_t", data.weights_t, torch.float32, (16, N_VERTS),
+                   dev)
+    if dev.type == "cuda" and (data.basis.data_ptr() % 8
+                               or data.weights_t.data_ptr() % 8):
+        raise ValueError("basis and weights_t must be 8-byte aligned")
 
 
 def fused_blend_skin_plain(data: ManoKernelData, coef: torch.Tensor,
@@ -104,18 +133,20 @@ def fused_blend_skin(data: ManoKernelData, coef: torch.Tensor,
     """coef (B, 146), g_rows (B*12, 16) -> verts (B, 778, 3), all fp32
     and contiguous on one device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors."""
-    _check_operands(data, coef, g_rows)
     dev, b = coef.device, coef.shape[0]
+    cuda_lib.check("coef", coef, torch.float32, (b, N_COEF), dev)
+    cuda_lib.check("g_rows", g_rows, torch.float32, (b * 12, 16), dev)
+    _check_constants(data, dev)
     if dev.type == "cpu":
         return fused_blend_skin_plain(data, coef, g_rows)
     if dev.type != "cuda":
         raise ValueError(f"fused_blend_skin: unsupported device {dev}")
-    if b > MAX_BATCH:
-        raise ValueError(f"fused_blend_skin: {b} hands is above the "
-                         f"launch limit of {MAX_BATCH}")
-    out = torch.empty((b, N_VERTS, 3), dtype=torch.float32, device=dev)
     if b == 0:
-        return out
+        return torch.empty((0, N_VERTS, 3), dtype=torch.float32, device=dev)
+    launch_shape(b)        # raises above the grid's limit
+    if g_rows.data_ptr() % 16:
+        raise ValueError("g_rows must be 16-byte aligned")
+    out = torch.empty((b, N_VERTS, 3), dtype=torch.float32, device=dev)
     cuda_lib.launch(cuda_lib.library().acr_mano_fused, dev, coef.data_ptr(),
                     g_rows.data_ptr(), data.basis.data_ptr(),
                     data.weights_t.data_ptr(), b, out.data_ptr())

@@ -26,6 +26,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from acr_tpu_torch.ops.rotations import axis_angle_to_rotmat, rotmat_to_axis_angle
+from acr_tpu_torch.utils.device import resolve_device
 
 
 class ChannelState(NamedTuple):
@@ -36,7 +37,10 @@ class ChannelState(NamedTuple):
     initialized: torch.Tensor   # () bool
 
 
-def init_channel(shape, device="cpu") -> ChannelState:
+def init_channel(shape, device="cuda") -> ChannelState:
+    """A fresh channel on ``device`` (the card unless ``device="cpu"``;
+    raises without a card)."""
+    device = resolve_device(device)
     z = torch.zeros(shape, dtype=torch.float32, device=device)
     return ChannelState(z, z, z, torch.zeros((), dtype=torch.bool,
                                              device=device))
@@ -78,7 +82,7 @@ class HandFilterState(NamedTuple):
     betas: ChannelState        # (10,)
 
 
-def init_hand_filter(device="cpu") -> HandFilterState:
+def init_hand_filter(device="cuda") -> HandFilterState:
     return HandFilterState(init_channel((3, 3), device),
                            init_channel((45,), device),
                            init_channel((10,), device))
@@ -115,7 +119,7 @@ class TwoHandFilterState(NamedTuple):
     right: HandFilterState
 
 
-def init_two_hand_filter(device="cpu") -> TwoHandFilterState:
+def init_two_hand_filter(device="cuda") -> TwoHandFilterState:
     return TwoHandFilterState(init_hand_filter(device), init_hand_filter(device))
 
 

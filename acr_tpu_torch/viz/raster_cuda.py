@@ -3,8 +3,11 @@
 Counterpart of ``acr_tpu/viz/raster_pallas.py``:
 
 * ``raster_flat`` launches ``raster_flat_kernel`` (``csrc/raster.cu``),
-  the port of the Pallas ``_raster_kernel``: every face over every
-  pixel, the exact path for any frame;
+  the port of the Pallas ``_raster_kernel``: the exact path for any
+  frame. Its TPU original folds every face at every pixel; the kernel
+  folds, per block of 8 x 128 pixels, only the faces that
+  ``flat_cull_mask`` keeps for the block (the binned prestage's
+  inclusive bbox test), in ascending id order, which changes no bit;
 * ``raster_binned`` launches ``raster_binned_kernel``, the port of
   ``_raster_kernel_binned``: the same math over each 8 x ``col_tile``
   pixel tile's bbox-binned face list, bounded by the tile's live count;
@@ -47,6 +50,7 @@ COL_TILE = 256
 BIN_CAP = 512
 BAND_H = 256          # banded kernel: rows per band
 BAND_CAP = 2048       # banded kernel: face-table columns per band
+FLAT_TILE_H, FLAT_TILE_W = 8, 128   # flat kernel: pixels per block
 N_ATTR = 16
 TIERS = (128, 256, 512)
 # rows of the (32, F) face table: 0..8 triangle, 9 inverse area, 10 global
@@ -185,22 +189,41 @@ def face_bboxes(tri_rows: torch.Tensor):
     return xs.min(0).values, xs.max(0).values, ys.min(0).values, ys.max(0).values
 
 
-def _tile_overlap(tri_rows: torch.Tensor, inv_area: torch.Tensor,
-                  height: int, width: int, col_tile: int) -> torch.Tensor:
-    """(T, F) bool: live face f's bbox reaches tile t (8 x ``col_tile``
-    pixels, row-major grid order). tri_rows (R, F), rows 0..8 the
-    triangle; a face is live where ``inv_area != 0``."""
+def _block_overlap(tri_rows: torch.Tensor, inv_area: torch.Tensor,
+                   n_ty: int, n_tx: int, tile_h: int,
+                   tile_w: int) -> torch.Tensor:
+    """(n_ty * n_tx, F) bool: live face f's bbox reaches the tile_h x
+    tile_w tile (row-major grid order). tri_rows (R, F), rows 0..8 the
+    triangle; a face is live where ``inv_area != 0``. A NaN screen
+    coordinate makes the face's bbox NaN, so it reaches no tile."""
     dev = tri_rows.device
-    n_ty, n_tx = height // ROW_TILE, width // col_tile
     xmin, xmax, ymin, ymax = face_bboxes(tri_rows)
-    ty = torch.arange(n_ty, dtype=torch.float32, device=dev) * ROW_TILE
-    tx = torch.arange(n_tx, dtype=torch.float32, device=dev) * col_tile
+    ty = torch.arange(n_ty, dtype=torch.float32, device=dev) * tile_h
+    tx = torch.arange(n_tx, dtype=torch.float32, device=dev) * tile_w
     # pixel centers in a tile span [t0 + 0.5, t0 + tile - 0.5]
-    y_hit = (ymin[None] <= ty[:, None] + ROW_TILE) & (ymax[None] >= ty[:, None])
-    x_hit = (xmin[None] <= tx[:, None] + col_tile) & (xmax[None] >= tx[:, None])
+    y_hit = (ymin[None] <= ty[:, None] + tile_h) & (ymax[None] >= ty[:, None])
+    x_hit = (xmin[None] <= tx[:, None] + tile_w) & (xmax[None] >= tx[:, None])
     live = inv_area != 0.0
     return (y_hit[:, None, :] & x_hit[None, :, :]
             & live[None, None, :]).reshape(n_ty * n_tx, -1)
+
+
+def _tile_overlap(tri_rows: torch.Tensor, inv_area: torch.Tensor,
+                  height: int, width: int, col_tile: int) -> torch.Tensor:
+    """(T, F) bool: live face f's bbox reaches tile t (8 x ``col_tile``
+    pixels, row-major grid order)."""
+    return _block_overlap(tri_rows, inv_area, height // ROW_TILE,
+                          width // col_tile, ROW_TILE, col_tile)
+
+
+def flat_cull_mask(tri: torch.Tensor, inv: torch.Tensor, height: int,
+                   width: int) -> torch.Tensor:
+    """(n_blocks, F) bool: the faces the flat kernel folds in each of its
+    ``FLAT_TILE_H`` x ``FLAT_TILE_W`` pixel blocks, ceil(H / 8) x
+    ceil(W / 128) in row-major grid order (the kernel's ``face_reaches``).
+    Used by the tests and by the kernel's bound."""
+    return _block_overlap(tri, inv, -(-height // FLAT_TILE_H),
+                          -(-width // FLAT_TILE_W), FLAT_TILE_H, FLAT_TILE_W)
 
 
 def bin_faces(tri_rows: torch.Tensor, inv_area: torch.Tensor, height: int,

@@ -18,7 +18,9 @@ frames made from a seed:
   over the chunk, MANO refine, a render per frame), through the fused
   MANO kernel (``use_pallas_mano="on"``) and the binned kernel.
 It checks them against the port's own CPU run, and times the steps, the
-loop, the chunk step, folder mode and the kernels (CUDA events). Any
+loop, the chunk step, folder mode and the kernels: each kernel by CUDA
+events around back-to-back calls (``ms``) and alone on the device, as
+launches captured in one CUDA graph and replayed (``device_ms``). Any
 failure raises and exits nonzero. The last line of standard output is
 one JSON object ``{"ok": true, "device": {...}}``; the line before it is
 the card's ``nvidia-smi`` name and power limit, and before that a JSON
@@ -95,6 +97,52 @@ def cuda_ms(fn, iters=20, reps=5, warmup=3):
     return windows[len(windows) // 2], windows[0], windows[-1], reps, windows
 
 
+def graph_ms(fn, n=50, reps=5):
+    """Device ms per call of ``fn``: ``n`` calls captured in one CUDA
+    graph and replayed, timed by CUDA events, so the host's issue time
+    drops out. Returns the median of ``reps`` replays."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        windows.append(start.elapsed_time(end) / n)
+    del graph
+    return sorted(windows)[reps // 2]
+
+
+def host_issue_ms(fn, n=200):
+    """Host ms per call of ``fn`` issued back to back (the host clock
+    from the first call's issue to the last one's return; no sync in
+    between), after a warm-up."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e3
+
+
 def ms_text(t):
     return (f"{t[0]:.4f} ms (median of {t[3]} windows; min {t[1]:.4f}, "
             f"max {t[2]:.4f})")
@@ -119,6 +167,15 @@ def bound(n_bytes, n_flops):
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
+
+
+def flat_bound(n_faces, pairs, height, width):
+    """B2 on these inputs: 26 rows per face (triangle, inverse area,
+    attributes) read once and the pixels written once; the edge math of
+    the live (face, block) pairs that its cull keeps over the block's
+    8 x 128 pixels."""
+    return bound(4 * 26 * n_faces + PIXEL_OUT_BYTES * height * width,
+                 EDGE_FLOPS * pairs * 8 * 128)
 
 
 def mano_bound(batch):
@@ -218,6 +275,32 @@ def phase_kernels():
     if covered < SIZE * SIZE // 20:
         raise AssertionError(f"scene covers only {covered} pixels")
 
+    # the kernel's own cull on a NaN vertex (the fan of faces around it
+    # has NaN bboxes), at a ragged size: rows not a multiple of 8 and
+    # columns not of 128, the edge through the hands
+    fids = flat[0][flat[0] >= 0].long()
+    top = int(torch.bincount(fids).argmax())     # the face that draws most
+    nan_screen = screen.clone()
+    nan_screen[all_faces[top, 0]] = float("nan")
+    n_tri, n_inv = rc.face_rows(nan_screen, all_faces)
+    nan_faces = torch.isnan(n_tri[:6]).any(dim=0)
+    rh, rw = SIZE - 12, SIZE - 230
+    got = rc.raster_flat(n_tri, n_inv, attrs, rh, rw)
+    want = rc.raster_flat_plain(n_tri, n_inv, attrs, rh, rw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("flat kernel differs from the plain version on "
+                             "the NaN-vertex scene")
+    n_drawn = int((got[0] >= 0).sum())
+    edge = int((got[0][:, -1] >= 0).sum())
+    if nan_faces[got[0][got[0] >= 0].long()].any() or not edge:
+        raise AssertionError("NaN-vertex scene: a NaN face won a pixel, or "
+                             "the ragged edge cuts no drawn face")
+    say("kernels", f"flat vs plain with a NaN vertex ({int(nan_faces.sum())} "
+        f"NaN faces, one of them the frame's largest) at {rh}x{rw} px: fid, "
+        f"bary and attrs equal bit for bit; {n_drawn} covered pixels, {edge} "
+        "on the last column; no NaN face drawn")
+
     col_tile = min(rc.COL_TILE, SIZE)
     table = rc.face_table(tri, attrs)
     binned_err, tiers_run = 0.0, []
@@ -286,9 +369,10 @@ def serpentine_scene(device):
             t(np.stack([faces, faces]), dtype=torch.long))
 
 
-def phase_kernels_banded():
+def phase_kernels_banded(card):
     """The banded kernel against its plain version and the flat kernel
-    at 2048 px, and the band-overflow dispatch."""
+    at 2048 px, the band-overflow dispatch, and the flat kernel on that
+    band-overflow scene against its plain version, timed."""
     import torch
     from acr_tpu_torch.viz import raster as R
     from acr_tpu_torch.viz import raster_cuda as rc
@@ -336,7 +420,28 @@ def phase_kernels_banded():
             or probe[3] < 1 or took != {"raster_flat": 1} or not drawn
             or not bool(torch.isfinite(rgba).all())):
         raise AssertionError("band-overflow dispatch check failed")
-    return err
+
+    # B2 where render_hands just took it: 2048 px, the band overflowing
+    f_screen, f_faces, f_attrs = R.prepare_scene(*o_scene, HI, 1000.0)
+    f_tri, f_inv = rc.face_rows(f_screen, f_faces)
+    flat_args = (f_tri, f_inv, f_attrs, HI, HI)
+    flat_err = _max_err(rc.raster_flat(*flat_args),
+                        rc.raster_flat_plain(*flat_args))
+    flat = lambda: rc.raster_flat(*flat_args)
+    hi = {"ms": cuda_ms(flat, iters=20)[0], "device_ms": graph_ms(flat, n=20),
+          "err": flat_err}
+    pairs = int(rc.flat_cull_mask(f_tri, f_inv, HI, HI).sum())
+    hi["bound"] = flat_bound(f_faces.shape[0], pairs, HI, HI)
+    brute = bound(4 * 26 * f_faces.shape[0] + PIXEL_OUT_BYTES * HI * HI,
+                  EDGE_FLOPS * f_faces.shape[0] * HI * HI)
+    say("kernels", f"raster_flat vs plain on the band-overflow scene, "
+        f"{f_faces.shape[0]} faces at {HI} px: fid and attrs equal, bary max "
+        f"err {flat_err:g} (tol: fid/attrs equal, bary 1e-5); "
+        f"{hi['ms']:.4f} ms per call (CUDA events), device {hi['device_ms']:.4f} "
+        f"ms (20 launches in one CUDA graph); bound {hi['bound'][0]:.4f} ms "
+        f"({hi['bound'][1]}; {pairs} live (face, block) pairs), brute force "
+        f"of the TPU original {brute[0]:.4f} ms ({brute[1]}) [{card}]")
+    return err, hi
 
 
 def _weights(scale):
@@ -620,27 +725,41 @@ def phase_times(card, apps, frames):
         "raster_binned": lambda: rc.raster_binned(*binned_args),
         "raster_binned_plain": lambda: rc.raster_binned_plain(*binned_args),
     }
+    device = {}
     for name, fn in kernels.items():
         times[name] = cuda_ms(fn, iters=10 if "plain" in name else 50)
         scene = (f"near frame, tier {cap}" if "binned" in name
                  else "far frame")
+        if "plain" not in name:
+            device[name] = graph_ms(fn)
         say("times", f"{name} ({SIZE} px, {inv.shape[0]} faces, {scene}): "
-            f"{ms_text(times[name])} [{card}]")
-    # bounds on these inputs: flat reads 26 rows per face and folds every
-    # face at every pixel; binned reads the live slots' 34 rows (table,
-    # inv, id) and folds them over their tile's pixels
+            f"{ms_text(times[name])}"
+            + (f"; device {device[name]:.4f} ms (50 launches in one CUDA "
+               "graph, median of 5 replays)" if name in device else "")
+            + f" [{card}]")
+    # bounds on these inputs: flat reads 26 rows per face and folds the
+    # faces its block cull keeps over the block's pixels (the brute force
+    # of its TPU original folds every face at every pixel: kept as
+    # history); binned reads the live slots' 34 rows (table, inv, id) and
+    # folds them over their tile's pixels
     n_faces, n_px = inv.shape[0], SIZE * SIZE
     live = int(counts.sum())
+    pairs = int(rc.flat_cull_mask(tri, inv, SIZE, SIZE).sum())
     bounds = {
-        "raster_flat": bound(4 * 26 * n_faces + PIXEL_OUT_BYTES * n_px,
-                             EDGE_FLOPS * n_faces * n_px),
+        "raster_flat": flat_bound(n_faces, pairs, SIZE, SIZE),
         "raster_binned": bound(
             4 * (34 * live + counts.numel()) + PIXEL_OUT_BYTES * n_px,
             EDGE_FLOPS * live * rc.ROW_TILE * col_tile)}
-    for name, (ms, by) in bounds.items():
-        say("times", f"{name} bound on these inputs: {ms:.4f} ms "
-            f"({by}; {live} live binned slots)")
-    return {k: v[0] for k, v in times.items()}, errs, bounds
+    brute = bound(4 * 26 * n_faces + PIXEL_OUT_BYTES * n_px,
+                  EDGE_FLOPS * n_faces * n_px)
+    say("times", f"raster_flat bound on these inputs: {bounds['raster_flat'][0]:.4f} "
+        f"ms ({bounds['raster_flat'][1]}; {pairs} live (face, block) pairs "
+        f"of 8x128 px); brute force of the TPU original {brute[0]:.4f} ms "
+        f"({brute[1]})")
+    say("times", f"raster_binned bound on these inputs: "
+        f"{bounds['raster_binned'][0]:.4f} ms ({bounds['raster_binned'][1]}; "
+        f"{live} live binned slots)")
+    return {k: v[0] for k, v in times.items()}, errs, bounds, device
 
 
 def phase_times_stream(card, weights, out_dir):
@@ -691,9 +810,13 @@ def phase_times_stream(card, weights, out_dir):
             ("raster_banded", lambda: rc.raster_banded(*args), 50),
             ("raster_banded_plain", lambda: rc.raster_banded_plain(*args), 3)):
         times[name] = cuda_ms(fn, iters=iters)
+        if name == "raster_banded":
+            device = graph_ms(fn)
         say("times", f"{name} ({HI} px, {n} faces, the stream's frame, max "
             f"{int(args[2].max()) * rc.FACE_CHUNK} slots/tile bound): "
-            f"{ms_text(times[name])} [{card}]")
+            f"{ms_text(times[name])}"
+            + (f"; device {device:.4f} ms (CUDA graph)" if name ==
+               "raster_banded" else "") + f" [{card}]")
     # bound on these inputs: the live band-table columns (32 rows) and
     # tile slots read once, the live slots folded over their tile's pixels
     table, ids_t, tilenc = args[0], args[1], args[2]
@@ -704,10 +827,11 @@ def phase_times_stream(card, weights, out_dir):
                        EDGE_FLOPS * live_slots * rc.ROW_TILE * rc.COL_TILE)
     say("times", f"raster_banded bound on these inputs: {b_ms:.4f} ms "
         f"({b_by}; {live_cols} live table columns, {live_slots} live slots)")
-    return {k: v[0] for k, v in times.items()}, err, (b_ms, b_by)
+    return {k: v[0] for k, v in times.items()}, err, (b_ms, b_by), device
 
 
-MANO_BATCHES = (1, 8, 63, 64, 65, 1024, 4096)      # kernel vs plain
+# kernel vs plain: partial and whole blocks of 8 hands, 1 to 512 blocks
+MANO_BATCHES = (1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 1024, 4096)
 MANO_SWEEP = (8, 64, 256, 512, 1024, 4096)         # pure vs fused, threshold
 N_THROUGHPUT = 20             # 720p frames of the throughput run
 CHUNK = 8                     # val_batch_size of the throughput path
@@ -960,6 +1084,37 @@ def _chunk_breakdown(card, app, image, offsets, smooth_sequence):
         + f" [{card}]")
 
 
+def _wrapper_host_parts(card, data, coef, g_rows):
+    """Where B4's host issue goes: the wrapper against its parts, each
+    issued back to back (host_issue_ms)."""
+    import torch
+    from acr_tpu_torch.ops import cuda_lib
+    from acr_tpu_torch.ops import mano_kernel as mk
+    b, dev = coef.shape[0], coef.device
+    out = torch.empty((b, mk.N_VERTS, 3), device=dev)
+    fn = cuda_lib.library().acr_mano_fused
+    args = (coef.data_ptr(), g_rows.data_ptr(), data.basis.data_ptr(),
+            data.weights_t.data_ptr(), b, out.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    parts = {
+        "fused_blend_skin": lambda: mk.fused_blend_skin(data, coef, g_rows),
+        "cuda_lib.launch": lambda: cuda_lib.launch(fn, dev, *args),
+        "ctypes call": lambda: fn(*args, stream),
+        "torch.empty": lambda: torch.empty((b, mk.N_VERTS, 3), device=dev),
+        "operand checks": lambda: (
+            cuda_lib.check("coef", coef, torch.float32, (b, mk.N_COEF), dev),
+            cuda_lib.check("g_rows", g_rows, torch.float32, (b * 12, 16), dev),
+            mk._check_constants(data, dev)),
+        "launch_shape": lambda: mk.launch_shape(b),
+        "current_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "raw stream": lambda: cuda_lib._current_stream(
+            torch.cuda.current_device()),
+    }
+    say("times", f"B4 host issue at B {b}, ms per call (min of 3 runs of "
+        "200): " + "; ".join(f"{k} {min(host_issue_ms(f) for _ in range(3)):.4f}"
+                             for k, f in parts.items()) + f" [{card}]")
+
+
 def phase_times_throughput(card, weights, frames_dir, app):
     """The b8 chunk step (with and without -t, fused MANO on and off),
     the folder-mode frame rate over warmed chunks, and B4 against its
@@ -1008,6 +1163,7 @@ def phase_times_throughput(card, weights, frames_dir, app):
     dev = torch.device("cuda")
     model, data = _mano_sides(dev)["right"]
     basis2d = data.basis.reshape(mk.N_COEF, -1)
+    device = {}
     for batch in (8, 16, 1024):
         poses, betas = _mano_inputs(batch, batch, dev)
         coef, g_rows, _ = mk.blend_skin_operands(data, poses, betas)
@@ -1018,11 +1174,22 @@ def phase_times_throughput(card, weights, frames_dir, app):
                 ("mano_library", lambda: (torch.matmul(coef, basis2d),
                                           torch.matmul(g_rows,
                                                        data.weights_t)))):
-            times[f"{name}_{batch}"] = cuda_ms(fn, iters=50)
-            say("times", f"{name} at B {batch}: "
-                f"{ms_text(times[f'{name}_{batch}'])} [{card}]")
+            key = f"{name}_{batch}"
+            times[key] = cuda_ms(fn, iters=50)
+            extra = ""
+            if name != "mano_fused_plain":
+                device[key] = graph_ms(fn)
+                extra = (f"; device {device[key]:.4f} ms (50 calls in one "
+                         "CUDA graph, median of 5 replays)")
+            if name == "mano_fused":
+                extra += (f"; host issue {host_issue_ms(fn):.4f} ms per call "
+                          f"(launch shape {tuple(mk.launch_shape(batch))})")
+            say("times", f"{name} at B {batch}: {ms_text(times[key])}{extra} "
+                f"[{card}]")
         b_ms, b_by = mano_bound(batch)
         say("times", f"mano_fused bound at B {batch}: {b_ms:.5f} ms ({b_by})")
+        if batch == CHUNK:
+            _wrapper_host_parts(card, data, coef, g_rows)
 
     # the switch point. Both paths are bound by their launches at small
     # B, where the host's noise between windows is as large as their
@@ -1061,7 +1228,7 @@ def phase_times_throughput(card, weights, frames_dir, app):
         f"B = {by_device}; its CUDA-event median is no slower from B = "
         f"{by_wall} (PALLAS_MANO_MIN_BATCH is {infer.PALLAS_MANO_MIN_BATCH}) "
         f"[{card}]")
-    return {k: v[0] for k, v in times.items()}
+    return {k: v[0] for k, v in times.items()}, device
 
 
 def main():
@@ -1075,7 +1242,7 @@ def main():
     card, _ = phase_env()
     phase_build()
     kin = phase_kernels()
-    banded_err = phase_kernels_banded()
+    banded_err, flat_hi = phase_kernels_banded(card)
     mano_err = phase_kernels_mano()
     out_dir = os.path.join(ROOT, "build", "chip_smoke_out")
     launches, apps, frames = phase_main(out_dir)
@@ -1083,27 +1250,39 @@ def main():
     stream_launches = phase_stream(weights, os.path.join(out_dir, "stream"))
     phase_device_vs_cpu(apps, frames)
     phase_device_vs_cpu_t(weights, os.path.join(out_dir, "t"))
-    times, errs, bounds = phase_times(card, apps, frames)
-    stimes, stream_err, bounds["raster_banded"] = phase_times_stream(
-        card, weights, os.path.join(out_dir, "times"))
+    times, errs, bounds, device = phase_times(card, apps, frames)
+    stimes, stream_err, bounds["raster_banded"], device["raster_banded"] = \
+        phase_times_stream(card, weights, os.path.join(out_dir, "times"))
     frames_dir = os.path.join(out_dir, "throughput_frames")
     t_launches, t_app = phase_throughput(
         weights, frames_dir, os.path.join(out_dir, "throughput") + "/")
     phase_device_vs_cpu_chunk(weights, frames_dir,
                               os.path.join(out_dir, "chunk") + "/")
-    ttimes = phase_times_throughput(card, weights, frames_dir, t_app)
+    ttimes, tdevice = phase_times_throughput(card, weights, frames_dir, t_app)
+    device["mano_fused"] = tdevice[f"mano_fused_{CHUNK}"]
     # B4 at the throughput path's shape: 8 hands per launch
     bounds["mano_fused"] = mano_bound(CHUNK)
     src = "acr_tpu_torch/csrc/raster.cu"
+    # ms: back-to-back calls by CUDA events (the host's issue included
+    # where it is slower than the device); device_ms: launches captured in
+    # one CUDA graph and replayed. raster_flat's numbers are the far frame
+    # at 512 px; its 2048 px run on the band-overflow scene is printed above
     entry = lambda name, replaces, source, n, err, ms, plain_ms, lib_ms: {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bounds[name][0],
-        "bound_by": bounds[name][1], "library_ms": lib_ms}
+        "device_ms": device[name], "plain_ms": plain_ms,
+        "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+        "library_ms": lib_ms}
+    mano = entry("mano_fused", "acr_tpu/ops/mano_kernel.py:88",
+                 "acr_tpu_torch/csrc/mano.cu", t_launches["mano_fused"],
+                 mano_err, ttimes[f"mano_fused_{CHUNK}"],
+                 ttimes[f"mano_fused_plain_{CHUNK}"],
+                 ttimes[f"mano_library_{CHUNK}"])
+    mano["library_device_ms"] = tdevice[f"mano_library_{CHUNK}"]
     print(json.dumps({"kernels": [
         entry("raster_flat", "acr_tpu/viz/raster_pallas.py:106", src,
               launches["raster_flat"],
-              max(kin["flat_err"], errs["raster_flat"]),
+              max(kin["flat_err"], errs["raster_flat"], flat_hi["err"]),
               times["raster_flat"], times["raster_flat_plain"], None),
         entry("raster_binned", "acr_tpu/viz/raster_pallas.py:193", src,
               launches["raster_binned"],
@@ -1112,11 +1291,7 @@ def main():
         entry("raster_banded", "acr_tpu/viz/raster_pallas.py:298", src,
               stream_launches["raster_banded"], max(banded_err, stream_err),
               stimes["raster_banded"], stimes["raster_banded_plain"], None),
-        entry("mano_fused", "acr_tpu/ops/mano_kernel.py:88",
-              "acr_tpu_torch/csrc/mano.cu", t_launches["mano_fused"],
-              mano_err, ttimes[f"mano_fused_{CHUNK}"],
-              ttimes[f"mano_fused_plain_{CHUNK}"],
-              ttimes[f"mano_library_{CHUNK}"]),
+        mano,
     ]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,7 @@ def t(x):
                                               ("right", None)])
 def test_mano_forward(side, center_idx):
     jmodel, jfaces = jm.load_mano_model(MANO_DIR, side)
-    tmodel, tfaces = tm.load_mano_model(MANO_DIR, side)
+    tmodel, tfaces = tm.load_mano_model(MANO_DIR, side, device="cpu")
     np.testing.assert_array_equal(tfaces, jfaces)
     rng = np.random.RandomState(0)
     poses = (rng.randn(4, 48) * 0.4).astype(np.float32)

@@ -34,7 +34,7 @@ def models():
     out = {}
     for side in SIDES:
         jmodel, _ = jm.load_mano_model(MANO_DIR, side)
-        tmodel, _ = tm.load_mano_model(MANO_DIR, side)
+        tmodel, _ = tm.load_mano_model(MANO_DIR, side, device="cpu")
         out[side] = (jmodel, jk.build_kernel_data(jmodel), tmodel,
                      tk.build_kernel_data(tmodel))
     return out
@@ -162,6 +162,43 @@ def test_fused_blend_skin_checks_its_operands(models):
             tk.fused_blend_skin(tdata, bad_coef, bad_rows)
 
 
+def test_launch_shape_covers_every_hand_once():
+    """Every hand and vertex falls in exactly one block, and the grid and
+    block limits hold: 8 hands and 32 vertices per block of 256 threads."""
+    for batch in (*range(1, 301), 1024, 4096, tk.MAX_BATCH):
+        shape = tk.launch_shape(batch)
+        gx, gy = shape.grid
+        assert 1 <= gy <= tk.MAX_GRID_Y and 1 <= gx < 2 ** 31
+        assert shape.threads % 32 == 0 and shape.threads <= 1024
+        for n, per, blocks in ((batch, shape.hands, gy),
+                               (tk.N_VERTS, shape.verts, gx)):
+            covered = np.zeros(n, np.int64)
+            for k in range(blocks):
+                covered[k * per:(k + 1) * per] += 1
+            assert (covered == 1).all() and blocks * per - n < per
+    assert tk.launch_shape(8).grid == (25, 1)
+    assert tk.launch_shape(1024).grid == (25, 128)
+    for bad in (0, tk.MAX_BATCH + 1):
+        with pytest.raises(ValueError):
+            tk.launch_shape(bad)
+
+
+def test_wrong_constants_still_raise(models):
+    """The constants are checked on every call: a ManoKernelData with a
+    wrong one raises, also after good data has passed."""
+    _, _, _, tdata = models["left"]
+    coef, g_rows = torch.zeros(2, tk.N_COEF), torch.zeros(24, 16)
+    assert tk.fused_blend_skin(tdata, coef, g_rows).shape == (2, 778, 3)
+    for bad in (tdata._replace(basis=tdata.basis[:, :, :777].contiguous()),
+                tdata._replace(basis=tdata.basis.transpose(1, 2)),
+                tdata._replace(weights_t=tdata.weights_t[:15]),
+                tdata._replace(weights_t=tdata.weights_t.double())):
+        for _ in range(2):
+            with pytest.raises(ValueError):
+                tk.fused_blend_skin(bad, coef, g_rows)
+    assert tk.fused_blend_skin(tdata, coef, g_rows).shape == (2, 778, 3)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain(models):
     if not torch.cuda.is_available():
@@ -170,7 +207,8 @@ def test_cuda_kernel_matches_plain(models):
     _, _, tmodel, _ = models["right"]
     data = tk.build_kernel_data(tm.ManoModel(*(t.to(dev) for t in tmodel)))
     rng = np.random.RandomState(0)
-    for batch in (1, 8, 63, 64, 65, 1024):
+    # partial and whole blocks of 8 hands, from one block to 128
+    for batch in (1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 1024):
         coef = torch.from_numpy(rng.randn(batch, tk.N_COEF).astype(
             np.float32) * 0.1).to(dev)
         g_rows = torch.from_numpy(rng.randn(batch * 12, 16).astype(

@@ -6,8 +6,9 @@
 * The CLI's ``--device`` is ``cuda`` unless ``--device cpu`` is given,
   and without a card it raises instead of falling back to the CPU.
 
-And the repair of the throughput slice: ``ACRApp``, ``ACRPipeline`` and
-``Visualizer`` default to the card in the same way.
+And the repairs of the throughput slice and after: ``ACRApp``,
+``ACRPipeline``, ``Visualizer``, ``load_mano_model`` and the OneEuro
+state's ``init_*`` default to the card in the same way.
 """
 
 import os
@@ -68,14 +69,43 @@ def seeded_params():
     return init_params(torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("entry", ["ACRApp", "ACRPipeline", "Visualizer"])
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for item in x for t in _leaves(item)]
+    return []
+
+
+@pytest.mark.parametrize("entry", ["ACRApp", "ACRPipeline", "Visualizer",
+                                   "load_mano_model", "init_channel",
+                                   "init_hand_filter", "init_two_hand_filter"])
 def test_entry_points_run_on_the_card_by_default(entry, seeded_params,
                                                  monkeypatch, tmp_path):
-    """Repair C3: the library entry points default to ``device="cuda"``
-    and raise without a card; the CPU runs only when asked for."""
+    """Repairs C3 and C4: the library entry points default to
+    ``device="cuda"`` and raise without a card; the CPU runs only when
+    asked for."""
     import inspect
+    from acr_tpu_torch.models.mano import load_mano_model
+    from acr_tpu_torch.pipeline import temporal
     from acr_tpu_torch.pipeline.app import ACRApp
     from acr_tpu_torch.pipeline.infer import ACRPipeline
+    functions = {
+        "load_mano_model": lambda **kw: load_mano_model(MANO_DIR, "left", **kw),
+        "init_channel": lambda **kw: temporal.init_channel((45,), **kw),
+        "init_hand_filter": lambda **kw: temporal.init_hand_filter(**kw),
+        "init_two_hand_filter":
+            lambda **kw: temporal.init_two_hand_filter(**kw)}
+    if entry in functions:
+        fn = (load_mano_model if entry == "load_mano_model"
+              else getattr(temporal, entry))
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            functions[entry]()
+        leaves = _leaves(functions[entry](device="cpu"))
+        assert leaves and all(t.device.type == "cpu" for t in leaves)
+        return
     cls = {"ACRApp": ACRApp, "ACRPipeline": ACRPipeline,
            "Visualizer": Visualizer}[entry]
     assert inspect.signature(cls).parameters["device"].default == "cuda"

@@ -50,7 +50,7 @@ def hand_inputs(rng, n, near_pi=False):
 def test_oneeuro_step_matches_jax(dx_from_output):
     rng = np.random.RandomState(int(dx_from_output))
     xs = np.cumsum(rng.randn(6, 45).astype(np.float32) * 0.1, axis=0)
-    js, ts = jt.init_channel((45,)), tt.init_channel((45,))
+    js, ts = jt.init_channel((45,)), tt.init_channel((45,), device="cpu")
     for x in xs:
         js, jy = jt.oneeuro_step(js, jnp.asarray(x), 4.0, 0.7,
                                  dx_from_output=dx_from_output)
@@ -64,7 +64,7 @@ def test_oneeuro_step_matches_jax(dx_from_output):
 def test_smooth_two_hands_undetected_hand_untouched():
     rng = np.random.RandomState(2)
     poses, betas = hand_inputs(rng, 4)
-    js, ts = jt.init_two_hand_filter(), tt.init_two_hand_filter()
+    js, ts = jt.init_two_hand_filter(), tt.init_two_hand_filter(device="cpu")
     flags = np.array([[True, True], [True, False], [True, False],
                       [False, False]])
     for p, b, d in zip(poses, betas, flags):
@@ -94,7 +94,7 @@ def test_smooth_sequence_matches_jax(near_pi):
     js, jp, jb = jt.smooth_sequence(jt.init_two_hand_filter(),
                                     jnp.asarray(poses), jnp.asarray(betas),
                                     jnp.asarray(flags))
-    ts, tp, tb = tt.smooth_sequence(tt.init_two_hand_filter(),
+    ts, tp, tb = tt.smooth_sequence(tt.init_two_hand_filter(device="cpu"),
                                     torch.tensor(poses), torch.tensor(betas),
                                     torch.tensor(flags))
     assert tp.shape == (6, 2, 48) and tb.shape == (6, 2, 10)
@@ -102,7 +102,7 @@ def test_smooth_sequence_matches_jax(near_pi):
     np.testing.assert_allclose(tb.numpy(), np.asarray(jb), atol=TOL)
     assert_states(ts, js)
     # the sequence is smooth_two_hands frame by frame
-    st = tt.init_two_hand_filter()
+    st = tt.init_two_hand_filter(device="cpu")
     for k in range(6):
         st, p, b = tt.smooth_two_hands(st, torch.tensor(poses[k]),
                                        torch.tensor(betas[k]),
