@@ -35,7 +35,7 @@ _LIB_NAME = "libacr_kernels.so"
 # argument kinds of each C launcher: p a pointer (or the stream), i an int
 _SIGNATURES = {
     "acr_raster_flat": "pppiiippppp",
-    "acr_raster_binned": "ppppiiiippppp",
+    "acr_raster_binned": "ppppipiiiippppp",
     "acr_raster_banded": "pppiiiiiippppp",
     "acr_mano_fused": "ppppipp",
 }

@@ -4,9 +4,9 @@ Counterpart of ``acr_tpu/pipeline/app.py`` (reference: acr/main.py:24-205):
 host preprocessing, the device step (network, parser, MANO, projection,
 OneEuro smoothing and MANO refine with ``-t``, render), ONE readback,
 then the host composite and the written or shown frame. The device step
-issues work without reading it back, apart from the render's gate
-(``viz.raster.select_tier`` / ``banded_fits``); the readback is one
-``torch.cuda.synchronize()`` and then ``.cpu()`` of the output dict.
+issues work without reading it back, apart from the banded render's
+gate at 1024 px and above (``viz.raster.banded_fits``); the readback is
+one ``torch.cuda.synchronize()`` and then ``.cpu()`` of the output dict.
 
 The OneEuro state (``filter_state``) is a tree of tensors on the
 pipeline's device, carried from frame to frame. JAX fuses the stream
@@ -94,8 +94,8 @@ class ACRApp:
 
     def _issue(self, meta: Dict, probe: bool) -> Dict[str, torch.Tensor]:
         """Forward, OneEuro + refine with ``-t``, render and capacity
-        probe, issued on the device; nothing is read back but the render
-        gate. The planar (4, S, S) RGBA rides under ``_rgba``."""
+        probe, issued on the device; nothing is read back but the banded
+        render's gate. The planar (4, S, S) RGBA rides under ``_rgba``."""
         with torch.no_grad():
             out = self.pipeline(meta["image"], meta["offsets"])
             if self.cfg.temporal_optimization:
@@ -120,8 +120,8 @@ class ACRApp:
         over the chunk's frames in order (the state carried across
         chunks) and the MANO refine on the smoothed poses; a render per
         frame into ``_rgba`` (B, 4, S, S); with the probe on, the chunk's
-        reduced probe. Nothing is read back but the render gates, one per
-        frame."""
+        reduced probe. Nothing is read back but the banded render's gates
+        (at 1024 px and above), one per frame."""
         dev = self.pipeline.device
         image = torch.as_tensor(image).to(dev)
         offsets = torch.as_tensor(offsets, dtype=torch.float32).to(dev)
@@ -185,11 +185,14 @@ class ACRApp:
     def _log_overflow(self, max_tile: int, n_over: int,
                       max_band: int = 0, n_band_over: int = 0):
         if n_over:
+            how = ("the frame was rendered by the exact flat kernel"
+                   if self.cfg.render_size >= 1024 else
+                   "the binned kernel drew those tiles exactly from the "
+                   "full face table")
             log.warning(
                 "binned rasterizer overflow: %d tiles above capacity "
-                "(max %d faces/tile) at render_size=%d — the frame was "
-                "rendered by the exact flat kernel", n_over, max_tile,
-                self.cfg.render_size)
+                "(max %d faces/tile) at render_size=%d — %s", n_over,
+                max_tile, self.cfg.render_size, how)
         if n_band_over:
             log.warning(
                 "banded rasterizer overflow: %d row bands above the band "

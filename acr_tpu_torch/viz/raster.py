@@ -7,15 +7,17 @@ pinhole with image-down y: u = f x / z + cx, v = f y / z + cy. The
 reference's three 0.5-intensity lights along -z with 0.3 ambient reduce
 to one Lambert term on -normal_z.
 
-``render_hands`` picks the rasterizer per frame like the JAX
-dispatch (``raster.py:385-432``). Below 1024 px: the smallest binned
-capacity tier (128/256/512 faces per tile) that holds the frame's
-fullest tile, and the exact flat kernel when a tile holds more. At 1024
-px and above: the banded kernel, unless a tile holds more than
-``BIN_CAP`` faces or a band more than ``BAND_CAP``, and then the flat
-kernel. JAX decides on device with ``lax.switch``; here the frame's
-maxima are read once on the host, the render's only mid-step
-synchronisation.
+``render_hands`` draws the frame JAX's dispatch (``raster.py:385-432``)
+draws. Below 1024 px JAX takes the smallest binned capacity tier
+(128/256/512 faces per tile) that holds the frame's fullest tile, or the
+exact flat kernel when a tile holds more, by ``lax.switch`` on the
+device. Here one path draws every frame: the binned kernel at
+``min(BIN_CAP, F)`` faces per tile, which draws a tile above that from
+the full face table. Its result is the flat kernel's on every frame, so
+it is JAX's, and nothing is read to the host. At 1024 px and above: the
+banded kernel, unless a tile holds more than ``BIN_CAP`` faces or a band
+more than ``BAND_CAP``, and then the flat kernel; the two maxima are
+read once on the host, that render's only mid-step synchronisation.
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ from acr_tpu_torch.viz.raster_cuda import (
     BIN_CAP,
     FACE_CHUNK,
     N_ATTR,
-    TIERS,
     band_overflow_stats,
     banded_overflow_stats,
     bin_overflow_stats,
@@ -170,20 +171,19 @@ def prepare_scene(verts: torch.Tensor, cam_trans: torch.Tensor,
     padded to a 128 multiple, per-face attribute rows (16, F): the three
     corner normals (rows 0..8) and the hand color (9..11))."""
     all_verts = (verts + cam_trans[:, None, :]).reshape(-1, 3)
-    screen, all_faces, pad = _scene_screen_faces(
+    screen, all_faces, _ = _scene_screen_faces(
         all_verts, detection_flag, faces, verts.shape[1], size, focal,
         camera, fov_deg)
     dev = all_verts.device
     normals = compute_vertex_normals(all_verts, all_faces)
-    n_hand = faces.shape[1]
-    hand_of_face = torch.cat([
-        torch.zeros(n_hand, dtype=torch.long, device=dev),
-        torch.ones(n_hand, dtype=torch.long, device=dev),
-        torch.zeros(pad, dtype=torch.long, device=dev)])
-    face_colors = torch.as_tensor(PRE_COLORS, device=dev)[hand_of_face]
     f_total = all_faces.shape[0]
+    # faces [n_hand, 2 n_hand) are the right hand's, the padding the left
+    # color's; the colors enter as scalars, so no host-to-device copy
+    right = torch.arange(f_total, device=dev) // faces.shape[1] == 1
+    color_rows = [torch.where(right, float(PRE_COLORS[1, c]),
+                              float(PRE_COLORS[0, c])) for c in range(3)]
     corner_n = normals[all_faces.long()].permute(1, 2, 0)       # (3, 3, F)
-    attrs = torch.cat([corner_n.reshape(9, f_total), face_colors.T,
+    attrs = torch.cat([corner_n.reshape(9, f_total), torch.stack(color_rows),
                        torch.zeros((N_ATTR - 12, f_total), device=dev)],
                       dim=0).contiguous()
     return screen, all_faces, attrs
@@ -200,41 +200,23 @@ def render_hands(verts: torch.Tensor, cam_trans: torch.Tensor,
     verts (2, 778, 3) root-relative; cam_trans (2, 3); detection_flag
     (2,) bool; faces (2, 1538, 3) integer. Undetected hands collapse to a
     degenerate vertex and are never rasterized. On CUDA tensors the
-    binned, banded or flat kernel draws the frame; on CPU tensors their
+    binned kernel draws the frame below 1024 px, without a host read, and
+    the banded or flat kernel at 1024 px and above; on CPU tensors their
     plain versions do.
     """
     screen, all_faces, attrs = prepare_scene(
         verts, cam_trans, detection_flag, faces, size, focal, camera, fov_deg)
-    if _uses_bands(size, all_faces.shape[0]):
-        tier = "banded" if banded_fits(screen, all_faces, size) else None
-    else:
-        tier = select_tier(screen, all_faces, size)
-    if tier is None:
-        out = rasterize_flat(screen, all_faces, size, size, attrs=attrs)
-    elif tier == "banded":
+    if not _uses_bands(size, all_faces.shape[0]):
+        out = rasterize_binned(screen, all_faces, size, size,
+                               bin_cap=BIN_CAP, attrs=attrs, exact=True)
+    elif banded_fits(screen, all_faces, size):
         out = rasterize_banded(screen, all_faces, size, size,
                                band_cap=BAND_CAP, bin_cap=BIN_CAP,
                                band_h=BAND_H, attrs=attrs)
     else:
-        out = rasterize_binned(screen, all_faces, size, size, bin_cap=tier,
-                               attrs=attrs)
+        out = rasterize_flat(screen, all_faces, size, size, attrs=attrs)
     face_id, bary, attr_img = out
     return shade_from_attrs(face_id, bary, attr_img, planar=planar)
-
-
-def select_tier(screen: torch.Tensor, all_faces: torch.Tensor, size: int):
-    """The binned capacity tier for this frame, or None for the flat kernel.
-
-    The tiers are those of the JAX dispatch (``raster.py:414-418``); the
-    frame's max faces per tile is read to the host once (a sync)."""
-    f_total = all_faces.shape[0]
-    tiers = [c for c in TIERS if c <= BIN_CAP and c < f_total]
-    if not tiers:
-        return None
-    mx, _ = bin_overflow_stats(screen, all_faces, size, size, cap=BIN_CAP)
-    max_faces = int(mx.item())
-    idx = sum(max_faces > c for c in tiers)
-    return tiers[idx] if idx < len(tiers) else None
 
 
 def banded_fits(screen: torch.Tensor, all_faces: torch.Tensor,

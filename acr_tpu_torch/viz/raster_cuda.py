@@ -14,8 +14,12 @@ Counterpart of ``acr_tpu/viz/raster_pallas.py``:
 * ``bin_faces`` is the prestage (``_bin_faces``): a STABLE argsort of
   the tile x face overlap keeps every tile's list in ascending face id,
   so the lowest-id tie rule holds and the binned kernel is bit-identical
-  to the flat one while no tile exceeds ``cap``; above ``cap`` the
-  highest ids drop. ``bin_overflow_stats`` is the tier gate;
+  to the flat one while no tile exceeds ``cap``. Above ``cap`` the
+  highest ids drop, as on the TPU, unless the binned kernel is given the
+  full face table: then it draws an overflowing tile's remaining faces
+  from the table, and equals the flat kernel on every frame
+  (``rasterize_binned(..., exact=True)``, the render below 1024 px).
+  ``bin_overflow_stats`` counts the overflowing tiles;
 * ``raster_banded`` launches ``raster_banded_kernel``, the port of
   ``_raster_kernel_banded``, the path of every render at 1024 px and
   above: ``bin_faces_banded`` gathers face rows once per 256-row band
@@ -52,7 +56,6 @@ BAND_H = 256          # banded kernel: rows per band
 BAND_CAP = 2048       # banded kernel: face-table columns per band
 FLAT_TILE_H, FLAT_TILE_W = 8, 128   # flat kernel: pixels per block
 N_ATTR = 16
-TIERS = (128, 256, 512)
 # rows of the (32, F) face table: 0..8 triangle, 9 inverse area, 10 global
 # face id as f32 (exact below 2^24), 16..31 attributes
 ROW_INV, ROW_GID, ROW_ATTR = 9, 10, 16
@@ -184,8 +187,10 @@ def raster_flat(tri: torch.Tensor, inv: torch.Tensor, attrs: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def face_bboxes(tri_rows: torch.Tensor):
-    """(xmin, xmax, ymin, ymax), each (F,), of triangle rows (R, F)."""
-    xs, ys = tri_rows[[0, 3, 6]], tri_rows[[1, 4, 7]]
+    """(xmin, xmax, ymin, ymax), each (F,), of triangle rows (R, F).
+    Rows 0, 3, 6 and 1, 4, 7 are taken as strided slices: a list index
+    would be copied to the device with a host synchronisation."""
+    xs, ys = tri_rows[0:9:3], tri_rows[1:9:3]
     return xs.min(0).values, xs.max(0).values, ys.min(0).values, ys.max(0).values
 
 
@@ -232,16 +237,18 @@ def bin_faces(tri_rows: torch.Tensor, inv_area: torch.Tensor, height: int,
 
     tri_rows (R, F) with rows 0..8 the triangle, inv_area (F,) ->
     tri_t (T, R, cap), inv_t (T, cap), ids_t (T, cap) int32 global ids
-    (-1 for empty slots) and counts (T,) int32 live slots, clipped to
-    ``cap``; T = (H/8) * (W/col_tile) tiles in row-major grid order.
-    The stable argsort keeps each tile's faces in ascending id order; a
-    tile above ``cap`` drops its highest ids.
+    (-1 for empty slots) and counts (T,) int32, the live faces that
+    reach each tile (JAX's ``_bin_faces`` clips them to ``cap``; the
+    binned kernel does, or draws the rest from the face table);
+    T = (H/8) * (W/col_tile) tiles in row-major grid order. The stable
+    argsort keeps each tile's faces in ascending id order; a tile above
+    ``cap`` keeps its lowest ``cap`` ids.
     """
     dev = tri_rows.device
     overlap = _tile_overlap(tri_rows, inv_area, height, width, col_tile)
     order = torch.argsort((~overlap).to(torch.uint8), dim=1,
                           stable=True)[:, :cap]                  # (T, cap)
-    counts = overlap.sum(dim=1).clamp(max=cap).to(torch.int32)
+    counts = overlap.sum(dim=1).to(torch.int32)
     slot_live = (torch.arange(cap, device=dev)[None, :] < counts[:, None])
     tri_t = tri_rows.T[order].transpose(1, 2).contiguous()     # (T, R, cap)
     inv_t = torch.where(slot_live, inv_area[order],
@@ -262,18 +269,54 @@ def _tiles_to_planes(t: torch.Tensor, height: int, width: int,
     return t.permute(perm).reshape(lead + (height, width))
 
 
+def _fold_tiles(gx_all: torch.Tensor, gy_all: torch.Tensor, rows_of,
+                n_faces: int):
+    """The ascending fold of ``n_faces`` faces over each tile's pixel
+    centres gx_all, gy_all (T, px). ``rows_of(t0, t1)`` gives the faces
+    of tiles [t0, t1) as (rows (t, 9+, n), inv (t, n)), or shared by all
+    tiles as (rows (9+, n), inv (n,)). Returns the winner's face index
+    (-1 for none), b0 and b1, each (T, px)."""
+    dev = gx_all.device
+    n_tiles, px = gx_all.shape
+    step = _pixel_budget(px)
+    out = []
+    for t0 in range(0, n_tiles, step):
+        t1 = min(t0 + step, n_tiles)
+        gx, gy = gx_all[t0:t1, :, None], gy_all[t0:t1, :, None]
+        rows, inv = rows_of(t0, t1)
+        shape = (t1 - t0, px)
+        carry = (torch.full(shape, float("inf"), device=dev),
+                 torch.full(shape, -1, dtype=torch.int32, device=dev),
+                 torch.zeros(shape, device=dev), torch.zeros(shape, device=dev))
+        for s0 in range(0, n_faces, FACE_CHUNK):
+            s1 = min(s0 + FACE_CHUNK, n_faces)
+            w0, w1, depth = _edge_fold(gx, gy, rows, inv, s0, s1)
+            carry = _fold_step(carry, w0, w1, depth, s0)
+        out.append(carry[1:])
+    return tuple(torch.cat(c) for c in zip(*out))
+
+
 def raster_binned_plain(counts: torch.Tensor, tri_t: torch.Tensor,
                         inv_t: torch.Tensor, ids_t: torch.Tensor,
-                        height: int, width: int, col_tile: int):
+                        height: int, width: int, col_tile: int,
+                        table: Optional[torch.Tensor] = None):
     """Plain PyTorch version of ``raster_binned`` (any device).
 
     counts (T,) int32, tri_t (T, 32, cap) (rows 0..8 triangle, 16..31
     attribute rows), inv_t (T, cap), ids_t (T, cap) int32, as
     ``bin_faces`` makes them. It folds every slot (the kernel stops at
-    the tile's count; slots past it have inv = 0 and never win). Same
-    outputs as ``raster_flat_plain``.
+    the tile's count, clipped to ``cap``; slots past it have inv = 0 and
+    never win).
+
+    With ``table`` (32, F), the face table the slots were binned from
+    (``face_table`` with the inverse areas), a tile whose count exceeds
+    ``cap`` is drawn from every face of the table in ascending id order:
+    the faces that can win at its pixels all reach it, so the winner is
+    the kernel's, which folds only its kept slots and the reaching faces
+    after them. Without it, faces above ``cap`` drop. The overflowing
+    tiles are found with one host read. Same outputs as
+    ``raster_flat_plain``.
     """
-    del counts
     dev = inv_t.device
     n_tiles, _, cap = tri_t.shape
     n_tx = width // col_tile
@@ -287,63 +330,64 @@ def raster_binned_plain(counts: torch.Tensor, tri_t: torch.Tensor,
              * ROW_TILE).to(torch.float32)
     gx_all = (org_x[:, None] + loc_x[None]) + 0.5              # (T, px)
     gy_all = (org_y[:, None] + loc_y[None]) + 0.5
-    step = _pixel_budget(px)
-    fids, b0s, b1s, slots = [], [], [], []
-    for t0 in range(0, n_tiles, step):
-        t1 = min(t0 + step, n_tiles)
-        gx, gy = gx_all[t0:t1, :, None], gy_all[t0:t1, :, None]
-        rows, inv = tri_t[t0:t1], inv_t[t0:t1]
-        shape = (t1 - t0, px)
-        carry = (torch.full(shape, float("inf"), device=dev),
-                 torch.full(shape, -1, dtype=torch.int32, device=dev),
-                 torch.zeros(shape, device=dev), torch.zeros(shape, device=dev))
-        for s0 in range(0, cap, FACE_CHUNK):
-            s1 = min(s0 + FACE_CHUNK, cap)
-            w0, w1, depth = _edge_fold(gx, gy, rows, inv, s0, s1)
-            carry = _fold_step(carry, w0, w1, depth, s0)
-        slot = carry[1]
-        gid = ids_t[t0:t1].gather(1, slot.clamp(min=0).long())
-        fids.append(torch.where(slot >= 0, gid, torch.full_like(gid, -1)))
-        b0s.append(carry[2])
-        b1s.append(carry[3])
-        slots.append(slot)
-    slot = torch.cat(slots)                                     # (T, px)
+    slot, b0, b1 = _fold_tiles(
+        gx_all, gy_all, lambda t0, t1: (tri_t[t0:t1], inv_t[t0:t1]), cap)
+    won = slot >= 0                                             # (T, px)
+    gid = ids_t.gather(1, slot.clamp(min=0).long())
+    fid = torch.where(won, gid, torch.full_like(gid, -1))
     idx = slot.clamp(min=0).long()[:, None, :].expand(-1, N_ATTR, -1)
-    picked = tri_t[:, 16:16 + N_ATTR].gather(2, idx)            # (T, 16, px)
-    picked = torch.where((slot >= 0)[:, None, :], picked,
-                         torch.zeros_like(picked))
+    picked = tri_t[:, ROW_ATTR:ROW_ATTR + N_ATTR].gather(2, idx)  # (T, 16, px)
+    picked = torch.where(won[:, None, :], picked, torch.zeros_like(picked))
+    if table is not None:
+        over = torch.nonzero(counts > cap)[:, 0]
+        if len(over):
+            f, w0, w1 = _fold_tiles(
+                gx_all[over], gy_all[over],
+                lambda t0, t1: (table[:9], table[ROW_INV]), table.shape[1])
+            fid[over], b0[over], b1[over] = f, w0, w1
+            a = table[ROW_ATTR:ROW_ATTR + N_ATTR][:, f.clamp(min=0).long()]
+            a = a.transpose(0, 1)                               # (n, 16, px)
+            picked[over] = torch.where((f >= 0)[:, None, :], a,
+                                       torch.zeros_like(a))
     plane = lambda t: _tiles_to_planes(t, height, width, col_tile)
-    return (plane(torch.cat(fids)), plane(torch.cat(b0s)),
-            plane(torch.cat(b1s)), plane(picked))
+    return plane(fid), plane(b0), plane(b1), plane(picked)
 
 
 def raster_binned(counts: torch.Tensor, tri_t: torch.Tensor,
                   inv_t: torch.Tensor, ids_t: torch.Tensor, height: int,
-                  width: int, col_tile: int):
+                  width: int, col_tile: int,
+                  table: Optional[torch.Tensor] = None):
     """Binned z-buffer raster: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors. Same arguments and outputs as
-    ``raster_binned_plain``."""
+    ``raster_binned_plain``; the kernel finds the overflowing tiles
+    itself, without a host read."""
     if inv_t.device.type == "cpu":
         return raster_binned_plain(counts, tri_t, inv_t, ids_t, height,
-                                   width, col_tile)
+                                   width, col_tile, table)
     if inv_t.device.type != "cuda":
         raise ValueError(f"raster_binned: unsupported device {inv_t.device}")
     dev = inv_t.device
     n_tiles, cap = inv_t.shape
     if (height % ROW_TILE or width % col_tile
+            or (col_tile % FLAT_TILE_W and col_tile != width)
             or n_tiles != (height // ROW_TILE) * (width // col_tile)):
         raise ValueError(f"raster_binned: {n_tiles} tiles do not tile "
-                         f"{height}x{width} at 8x{col_tile}")
+                         f"{height}x{width} at 8x{col_tile} (col_tile a "
+                         f"multiple of {FLAT_TILE_W} or the whole width)")
     cuda_lib.check("counts", counts, torch.int32, (n_tiles,), dev)
     cuda_lib.check("tri_t", tri_t, torch.float32, (n_tiles, 32, cap), dev)
     cuda_lib.check("inv_t", inv_t, torch.float32, (n_tiles, cap), dev)
     cuda_lib.check("ids_t", ids_t, torch.int32, (n_tiles, cap), dev)
+    n_faces = 0 if table is None else table.shape[1]
+    if table is not None:
+        cuda_lib.check("table", table, torch.float32, (32, n_faces), dev)
     fid, b0, b1, attr_planes = _outputs(height, width, dev)
     cuda_lib.launch(cuda_lib.library().acr_raster_binned, dev,
                     counts.data_ptr(), tri_t.data_ptr(), inv_t.data_ptr(),
-                    ids_t.data_ptr(), cap, height, width, col_tile,
-                    fid.data_ptr(), b0.data_ptr(), b1.data_ptr(),
-                    attr_planes.data_ptr())
+                    ids_t.data_ptr(), cap,
+                    None if table is None else table.data_ptr(), n_faces,
+                    height, width, col_tile, fid.data_ptr(), b0.data_ptr(),
+                    b1.data_ptr(), attr_planes.data_ptr())
     LAUNCHES["raster_binned"] += 1
     return fid, b0, b1, attr_planes
 
@@ -589,10 +633,14 @@ def rasterize_flat(verts_screen: torch.Tensor, faces: torch.Tensor,
 
 def rasterize_binned(verts_screen: torch.Tensor, faces: torch.Tensor,
                      height: int, width: int, bin_cap: int = BIN_CAP,
-                     attrs: Optional[torch.Tensor] = None):
+                     attrs: Optional[torch.Tensor] = None,
+                     exact: bool = False):
     """Counterpart of ``rasterize_pallas_binned``; outputs as
     ``rasterize_flat``, bit-identical to it while no tile holds more
-    than ``bin_cap`` faces."""
+    than ``bin_cap`` faces. Above that a tile drops its highest ids, as
+    on the TPU, unless ``exact``: then the kernel draws the tile's other
+    faces from the full face table, and the result is the flat one on
+    every frame."""
     n_faces = faces.shape[0]
     col_tile = _check_tiling(n_faces, height, width)
     if bin_cap % FACE_CHUNK:
@@ -601,9 +649,11 @@ def rasterize_binned(verts_screen: torch.Tensor, faces: torch.Tensor,
     tri, inv = face_rows(verts_screen, faces)
     a = attrs if attrs is not None else torch.zeros(
         (N_ATTR, n_faces), device=inv.device)
-    tri_t, inv_t, ids_t, counts = bin_faces(face_table(tri, a.float()), inv,
-                                            height, width, col_tile, bin_cap)
-    out = raster_binned(counts, tri_t, inv_t, ids_t, height, width, col_tile)
+    table = face_table(tri, a.float(), inv)
+    tri_t, inv_t, ids_t, counts = bin_faces(table, inv, height, width,
+                                            col_tile, bin_cap)
+    out = raster_binned(counts, tri_t, inv_t, ids_t, height, width, col_tile,
+                        table=table if exact else None)
     return _finish(*out, with_attrs=attrs is not None)
 
 
@@ -641,7 +691,9 @@ def bin_overflow_stats(verts_screen: torch.Tensor, faces: torch.Tensor,
                        height: int, width: int, col_tile: int = COL_TILE,
                        cap: int = BIN_CAP):
     """(max faces per tile, number of tiles above ``cap``) as device
-    scalars: the bbox-overlap counts the prestage would build."""
+    scalars: the bbox-overlap counts the prestage would build. Below
+    1024 px the binned kernel draws the tiles above ``cap`` from the full
+    face table; JAX's dispatch takes the flat kernel for such a frame."""
     tri, inv = face_rows(verts_screen, faces)
     counts = _tile_overlap(tri, inv, height, width,
                            min(col_tile, width)).sum(dim=1)

@@ -9,7 +9,8 @@ against its plain PyTorch version on the card, and drives three paths on
 frames made from a seed:
 - the image-mode path (``ACRApp.process_frame``: full-width HRNet-W32 +
   ACR heads, parser, MANO, projection, on-device render, composite) at
-  512 px, through the flat and binned kernels;
+  512 px, through the binned kernel, which draws overflowing tiles
+  exactly without a host read;
 - the webcam stream path (``StreamingLoop`` over 720p frames:
   the same forward, OneEuro smoothing (``-t``), MANO refine, render)
   at ``render_size`` 2048, through the banded kernel, and again at 512;
@@ -31,10 +32,14 @@ fuse convs that emit each hand's parameters damped and biased (see
 ``_weights``) so that both hands are plausible, near MANO's mean pose,
 with the weak-perspective camera (scale, -+0.3, 0). The main path runs
 two such weight sets: "near" hands (scale 5) cover a few hundred
-pixels, so every tile fits a binned capacity tier (max 363 faces per
-tile on the H100 run); "far" hands (scale 0.6) cover a few dozen, so
-tiles overflow (max 885) and the frame takes the exact flat kernel.
-Both kernels of the path must launch in that run. The stream runs the
+pixels, so every tile fits the binned capacity (max 363 faces per tile
+on the H100 run); "far" hands (scale 0.6) cover a few dozen, so tiles
+overflow (max 885) and the binned kernel draws their other faces from
+the full face table. The binned kernel must launch in that run, and the
+512 px render must make no host sync (``torch.cuda.set_sync_debug_mode``).
+The flat kernel runs where a 2048 px band overflows: one image-mode frame
+at render 2048 of the "far" hands moved into one 256-row band (its
+launch is counted in that run, from 0). The stream runs the
 "near" weights: at 2048 px the hands straddle two 256-row bands, so
 every band and tile fits the banded kernel's caps.
 """
@@ -57,6 +62,10 @@ N_LOOP = 12                   # frames of each timed loop (2 warm-up)
 FRAME_HW = (720, 1280)        # a 720p webcam frame
 # weak-perspective camera scale of both hands in the main path's two runs
 CAM_SCALE = {"near": 5.0, "far": 0.6}
+# the band-overflow frame's camera ty: the 2048 px render keeps the input's
+# focal length, so the "far" hands (about 20 px tall) sit 128 px below the
+# canvas's centre, both inside one 256-row band instead of across two
+BAND_TY = 0.5
 # two-hand rest-pose scene for the kernel checks: depth of both hands
 SCENE_DEPTH = {"fits": 0.45, "overflows": 2.5, "fits_hi": 0.2}
 
@@ -148,10 +157,14 @@ def ms_text(t):
             f"max {t[2]:.4f})")
 
 
-# the card's peak rates for bound_ms (H100 SXM data sheet: HBM3 bytes/s,
-# fp32 operations/s outside the tensor cores)
+# the card's peak rates for bound_ms (H100 SXM data sheet: HBM3 bytes/s;
+# fp32 operations/s outside the tensor cores, which counts an FFMA as two
+# operations: 132 SMs x 128 lanes x 1.98 GHz x 2)
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+# the rasterizers' edge math is compiled with --fmad=false: only FADD and
+# FMUL, one operation per lane per clock, half the rate above
+PEAK_FADD_FMUL_S = 33.5e12
 # fp32 operations of the rasterizers' edge math per (face, pixel) pair:
 # w0 and w1 8 each, w2 2, depth 5 (csrc/raster.cu edge_test)
 EDGE_FLOPS = 23
@@ -159,11 +172,12 @@ EDGE_FLOPS = 23
 PIXEL_OUT_BYTES = 19 * 4
 
 
-def bound(n_bytes, n_flops):
+def bound(n_bytes, n_flops, flops_s=PEAK_FADD_FMUL_S):
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the fp32 operations over the fp32 rate. Returns
-    (ms, "bytes" or "operations")."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_flops / PEAK_FP32_S
+    the memory rate and the fp32 operations over ``flops_s`` (the FADD
+    and FMUL rate of the rasterizers by default). Returns (ms, "bytes" or
+    "operations")."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_flops / flops_s
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -178,13 +192,45 @@ def flat_bound(n_faces, pairs, height, width):
                  EDGE_FLOPS * pairs * 8 * 128)
 
 
+def binned_bound(tri, inv, counts, ids_t, height, width, col_tile):
+    """B1 on these inputs: for each face that reaches a tile (the
+    unclipped counts: a kept slot's 34 rows of tri_t, inv_t and ids_t, or
+    an overflow face's 26 rows of the table; 34 counted for each), read
+    once, the counts read and the pixels written once; the edge math of
+    the (face, 8 x 128 block) pairs the kernel folds over the block's
+    pixels: a tile's candidates (its kept slots and, above the cap, every
+    face after the last kept id) that its cull (flat_cull_mask) keeps in
+    each block of the tile. Returns (the bound, the (face, tile) pairs,
+    the (face, block) pairs)."""
+    import torch
+    from acr_tpu_torch.viz import raster_cuda as rc
+    dev = ids_t.device
+    n_tiles, cap = ids_t.shape
+    n_faces = tri.shape[1]
+    cand = torch.zeros((n_tiles, n_faces + 1), dtype=torch.bool, device=dev)
+    cand.scatter_(1, torch.where(ids_t >= 0, ids_t, n_faces).long(), True)
+    after = torch.arange(n_faces, device=dev)[None] > ids_t[:, cap - 1:]
+    cand = cand[:, :n_faces] | ((counts > cap)[:, None] & after)
+    cull = rc.flat_cull_mask(tri, inv, height, width)
+    block = torch.arange(cull.shape[0], device=dev)
+    n_bx = -(-width // rc.FLAT_TILE_W)
+    tile = ((block // n_bx) * (width // col_tile)
+            + (block % n_bx) * rc.FLAT_TILE_W // col_tile)
+    live, pairs = int(counts.sum()), int((cand[tile] & cull).sum())
+    return bound(4 * (34 * live + counts.numel())
+                 + PIXEL_OUT_BYTES * height * width,
+                 EDGE_FLOPS * pairs * rc.FLAT_TILE_H * rc.FLAT_TILE_W), \
+        live, pairs
+
+
 def mano_bound(batch):
     """B4 at ``batch`` hands: coef, g_rows, basis and weights read once,
-    the vertices written once; the two products and the affine."""
+    the vertices written once; the two products and the affine, whose
+    products are FMAs (the 67e12 rate)."""
     n_bytes = 4 * (batch * 146 + batch * 192 + 146 * 3 * 778 + 16 * 778
                    + batch * 778 * 3)
     n_flops = batch * 778 * (2 * (146 * 3 + 12 * 16) + 18)
-    return bound(n_bytes, n_flops)
+    return bound(n_bytes, n_flops, PEAK_FP32_S)
 
 
 def phase_env():
@@ -246,8 +292,9 @@ def rest_pose_scene(device, depth):
 
 
 def phase_kernels():
-    """Each kernel against its plain version on the card, binned tiers
-    against the flat kernel, and the overflow dispatch."""
+    """The flat and binned kernels against their plain versions on the
+    card, the binned kernel against the flat one at three caps, and an
+    overflowing frame through render_hands."""
     import torch
     from acr_tpu_torch.viz import raster as R
     from acr_tpu_torch.viz import raster_cuda as rc
@@ -255,7 +302,6 @@ def phase_kernels():
     verts, cam_trans, det, faces = rest_pose_scene(dev, SCENE_DEPTH["fits"])
     screen, all_faces, attrs = R.prepare_scene(verts, cam_trans, det, faces,
                                                SIZE, 1265.0)
-    max_faces = int(rc.bin_overflow_stats(screen, all_faces, SIZE, SIZE)[0])
     tri, inv = rc.face_rows(screen, all_faces)
     flat = rc.raster_flat(tri, inv, attrs, SIZE, SIZE)
     plain = rc.raster_flat_plain(tri, inv, attrs, SIZE, SIZE)
@@ -301,52 +347,93 @@ def phase_kernels():
         f"bary and attrs equal bit for bit; {n_drawn} covered pixels, {edge} "
         "on the last column; no NaN face drawn")
 
-    col_tile = min(rc.COL_TILE, SIZE)
-    table = rc.face_table(tri, attrs)
-    binned_err, tiers_run = 0.0, []
-    for cap in rc.TIERS:
-        if max_faces > cap:
-            continue
-        tri_t, inv_t, ids_t, counts = rc.bin_faces(table, inv, SIZE, SIZE,
-                                                   col_tile, cap)
-        got = rc.raster_binned(counts, tri_t, inv_t, ids_t, SIZE, SIZE,
-                               col_tile)
-        for g, f in zip(got, flat):
-            if not torch.equal(g, f):
-                raise AssertionError(f"binned tier {cap} differs from flat")
-        plain_b = rc.raster_binned_plain(counts, tri_t, inv_t, ids_t, SIZE,
-                                         SIZE, col_tile)
-        if not (torch.equal(got[0], plain_b[0])
-                and torch.equal(got[3], plain_b[3])):
-            raise AssertionError(f"binned tier {cap} differs from its plain version")
-        binned_err = max(binned_err, max(float((a - b).abs().max())
-                                         for a, b in zip(got[1:3], plain_b[1:3])))
-        tiers_run.append(cap)
-    if not tiers_run:
-        raise AssertionError(f"scene fits no tier (max {max_faces} faces/tile)")
-    say("kernels", f"max {max_faces} faces/tile; binned tiers {tiers_run} "
-        f"bit-identical to flat; binned vs plain bary max err {binned_err:g}")
+    # B1 with exact overflow against its plain version and against B2, bit
+    # for bit, at caps 128, 256 and 512: on this scene, on the NaN-vertex
+    # scene at 512 px, and on a scene above the cap of 512
+    o_scene = rest_pose_scene(dev, SCENE_DEPTH["overflows"])
+    o_screen, o_all, o_attrs = R.prepare_scene(*o_scene, SIZE, 1265.0)
+    scenes = {"rest pose": (screen, all_faces, attrs),
+              "NaN vertex": (nan_screen, all_faces, attrs),
+              "overflow": (o_screen, o_all, o_attrs)}
+    for name, (s_screen, s_faces, s_attrs) in scenes.items():
+        s_tri, s_inv = rc.face_rows(s_screen, s_faces)
+        s_flat = rc.raster_flat(s_tri, s_inv, s_attrs, SIZE, SIZE)
+        for cap in (128, 256, rc.BIN_CAP):
+            args, table = binned_inputs(s_tri, s_inv, s_attrs, SIZE, cap)
+            got = rc.raster_binned(*args, table=table)
+            plain_b = rc.raster_binned_plain(*args, table=table)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, p) and torch.equal(g, f)
+                       for g, p, f in zip(got, plain_b, s_flat)):
+                raise AssertionError(f"binned kernel at cap {cap} on the "
+                                     f"{name} scene differs from its plain "
+                                     "version or from flat")
+        mx, n_over = (int(x) for x in rc.bin_overflow_stats(
+            s_screen, s_faces, SIZE, SIZE))
+        say("kernels", f"binned vs plain and flat, {name} scene at {SIZE} "
+            f"px (max {mx} faces/tile, {n_over} tiles above 512), caps 128, "
+            "256, 512, overflow drawn from the face table: fid, bary and "
+            "attrs equal bit for bit")
+    if n_over < 1:
+        raise AssertionError("the overflow scene has no tile above 512")
 
-    # a scene above the largest tier: render_hands takes the flat kernel
-    o_verts, o_trans, o_det, o_faces = rest_pose_scene(
-        dev, SCENE_DEPTH["overflows"])
-    o_screen, o_all, _ = R.prepare_scene(o_verts, o_trans, o_det, o_faces,
-                                         SIZE, 1265.0)
-    o_max = int(rc.bin_overflow_stats(o_screen, o_all, SIZE, SIZE)[0])
+    # the overflow scene through render_hands: one binned launch, no host
+    # sync, the plain path's RGBA on the CPU
+    R.render_hands(*o_scene, size=SIZE)                   # warm-up
     rc.reset_launch_counts()
-    rgba = R.render_hands(o_verts, o_trans, o_det, o_faces, size=SIZE)
-    launched = dict(rc.LAUNCHES)
-    ref = R.render_hands(o_verts.cpu(), o_trans.cpu(), o_det.cpu(),
-                         o_faces.cpu(), size=SIZE)
+    rgba = sync_free(lambda: R.render_hands(*o_scene, size=SIZE))
+    launched = {k: v for k, v in rc.LAUNCHES.items() if v}
+    ref = R.render_hands(*(x.cpu() for x in o_scene), size=SIZE)
     rgba_err = float((rgba.cpu() - ref).abs().max())
-    path = "flat" if {k: v for k, v in launched.items() if v} == \
-        {"raster_flat": 1} else None
-    say("kernels", f"overflow scene: max {o_max} faces/tile, render_hands "
-        f"took {path or launched}; RGBA vs plain path max err {rgba_err:g} "
-        "(tol 1e-5)")
-    if o_max <= rc.BIN_CAP or path != "flat" or rgba_err > 1e-5:
-        raise AssertionError("overflow dispatch check failed")
-    return {"flat_err": flat_bary_err, "binned_err": binned_err}
+    say("kernels", f"overflow scene through render_hands under "
+        f"set_sync_debug_mode('error'): launches {launched}; RGBA vs the "
+        f"plain path on the CPU max err {rgba_err:g} (tol 1e-5)")
+    if launched != {"raster_binned": 1} or rgba_err > 1e-5:
+        raise AssertionError("overflow render check failed")
+    return {"flat_err": flat_bary_err, "binned_err": 0.0}
+
+
+def binned_inputs(tri, inv, attrs, size, cap):
+    """The render path's B1 operands for one frame: (the positional
+    arguments of raster_binned; the face table)."""
+    from acr_tpu_torch.viz import raster_cuda as rc
+    col_tile = min(rc.COL_TILE, size)
+    table = rc.face_table(tri, attrs, inv)
+    tri_t, inv_t, ids_t, counts = rc.bin_faces(table, inv, size, size,
+                                               col_tile, cap)
+    return (counts, tri_t, inv_t, ids_t, size, size, col_tile), table
+
+
+def sync_free(fn):
+    """``fn()`` under torch.cuda.set_sync_debug_mode("error"): any host
+    synchronisation in it raises."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def count_syncs(fn):
+    """The host synchronisations in ``fn()`` that torch's sync debug mode
+    reports (a prototype: it may miss some), and where they are."""
+    import collections
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+        if "called a synchronizing" in str(w.message))
+    return sum(where.values()), dict(where)
 
 
 def serpentine_scene(device):
@@ -369,10 +456,10 @@ def serpentine_scene(device):
             t(np.stack([faces, faces]), dtype=torch.long))
 
 
-def phase_kernels_banded(card):
+def phase_kernels_banded():
     """The banded kernel against its plain version and the flat kernel
-    at 2048 px, the band-overflow dispatch, and the flat kernel on that
-    band-overflow scene against its plain version, timed."""
+    at 2048 px, and the band-overflow dispatch on a hand-made scene, with
+    the flat kernel on it against its plain version."""
     import torch
     from acr_tpu_torch.viz import raster as R
     from acr_tpu_torch.viz import raster_cuda as rc
@@ -421,33 +508,94 @@ def phase_kernels_banded(card):
             or not bool(torch.isfinite(rgba).all())):
         raise AssertionError("band-overflow dispatch check failed")
 
-    # B2 where render_hands just took it: 2048 px, the band overflowing
     f_screen, f_faces, f_attrs = R.prepare_scene(*o_scene, HI, 1000.0)
+    f_tri, f_inv = rc.face_rows(f_screen, f_faces)
+    flat_args = (f_tri, f_inv, f_attrs, HI, HI)
+    flat_err = _max_err(rc.raster_flat(*flat_args),
+                        rc.raster_flat_plain(*flat_args))
+    say("kernels", f"raster_flat vs plain on that scene, {f_faces.shape[0]} "
+        f"faces at {HI} px: fid and attrs equal, bary max err {flat_err:g} "
+        "(tol: fid/attrs equal, bary 1e-5)")
+    return err, flat_err
+
+
+def phase_band_overflow(card, out_dir):
+    """B2's path: one ACRApp.process_frame at render_size 2048 of the
+    "far" hands moved into one 256-row band (the band holds both hands'
+    3076 faces, above BAND_CAP), the launch counts zeroed just before it
+    and read just after; then B2 against its plain version on that
+    frame's scene, timed against its bound."""
+    import numpy as np
+    import torch
+    from acr_tpu_torch.config import Config
+    from acr_tpu_torch.pipeline.app import ACRApp
+    from acr_tpu_torch.pipeline.preprocess import img_preprocess
+    from acr_tpu_torch.viz import raster as R
+    from acr_tpu_torch.viz import raster_cuda as rc
+    cfg = Config(input_size=SIZE, render_size=HI, configs_yml="",
+                 centermap_conf_thresh=-1e9, output_dir=out_dir)
+    app = ACRApp(cfg, params=_weights(CAM_SCALE["far"], BAND_TY),
+                 device="cuda")
+    frame = (np.random.RandomState(1).rand(SIZE, SIZE, 3) * 255).astype(
+        np.uint8)
+    rc.reset_launch_counts()
+    if importlib.util.find_spec("cv2") is not None:
+        app.process_frame(frame, "band_overflow.jpg")
+        out = app.last_output
+    else:
+        out = app.device_step(img_preprocess(frame, None, SIZE))
+    took = {k: v for k, v in rc.LAUNCHES.items() if v}
+    t = lambda k: torch.as_tensor(out[k][0]).cuda()
+    scene = (t("verts"), t("cam_trans"), t("detection_flag"),
+             app.visualizer.faces)
+    probe = R.render_overflow_probe(*scene, size=HI,
+                                    focal=app.cfg.focal_length).tolist()
+    drawn = int((out["_rgba"][3] > 0).sum())
+    say("band_overflow", f"{HI} px frame through ACRApp.process_frame, far "
+        f"hands at ty {BAND_TY}: probe [max faces/tile, tiles over, max "
+        f"faces/band, bands over] = {probe}; launches {took}; {drawn} pixels "
+        "drawn")
+    for k in ("verts", "j3d", "pj2d", "cam_trans", "_rgba"):
+        if not np.isfinite(out[k]).all():
+            raise AssertionError(f"non-finite {k}")
+    if (out["_rgba"].shape != (4, HI, HI) or not drawn
+            or not out["detection_flag"].all()):
+        raise AssertionError("band-overflow frame: RGBA shape, empty render "
+                             "or a hand not detected")
+    if probe[2] <= rc.BAND_CAP or probe[3] < 1 or took != {"raster_flat": 1}:
+        raise AssertionError("the band-overflow frame did not take raster_flat")
+
+    # B2 where the app just took it
+    f_screen, f_faces, f_attrs = R.prepare_scene(*scene, HI,
+                                                 app.cfg.focal_length)
     f_tri, f_inv = rc.face_rows(f_screen, f_faces)
     flat_args = (f_tri, f_inv, f_attrs, HI, HI)
     flat_err = _max_err(rc.raster_flat(*flat_args),
                         rc.raster_flat_plain(*flat_args))
     flat = lambda: rc.raster_flat(*flat_args)
     hi = {"ms": cuda_ms(flat, iters=20)[0], "device_ms": graph_ms(flat, n=20),
-          "err": flat_err}
+          "err": flat_err, "launches": took["raster_flat"],
+          "plain_ms": cuda_ms(lambda: rc.raster_flat_plain(*flat_args),
+                              iters=1, reps=3, warmup=0)[0]}
     pairs = int(rc.flat_cull_mask(f_tri, f_inv, HI, HI).sum())
     hi["bound"] = flat_bound(f_faces.shape[0], pairs, HI, HI)
     brute = bound(4 * 26 * f_faces.shape[0] + PIXEL_OUT_BYTES * HI * HI,
                   EDGE_FLOPS * f_faces.shape[0] * HI * HI)
-    say("kernels", f"raster_flat vs plain on the band-overflow scene, "
+    say("band_overflow", f"raster_flat vs plain on that frame, "
         f"{f_faces.shape[0]} faces at {HI} px: fid and attrs equal, bary max "
         f"err {flat_err:g} (tol: fid/attrs equal, bary 1e-5); "
         f"{hi['ms']:.4f} ms per call (CUDA events), device {hi['device_ms']:.4f} "
-        f"ms (20 launches in one CUDA graph); bound {hi['bound'][0]:.4f} ms "
+        f"ms (20 launches in one CUDA graph), plain version "
+        f"{hi['plain_ms']:.4f} ms; bound {hi['bound'][0]:.4f} ms "
         f"({hi['bound'][1]}; {pairs} live (face, block) pairs), brute force "
         f"of the TPU original {brute[0]:.4f} ms ({brute[1]}) [{card}]")
-    return err, hi
+    return hi
 
 
-def _weights(scale):
+def _weights(scale, ty=0.0):
     """init_params(seed 0), with the 1x1 fuse convs (which emit each
     hand's 109 parameters) and the prior heads' output convs scaled by
-    0.05, and the fuse-conv biases set to the camera (scale, -+0.3, 0),
+    0.05, and the fuse-conv biases set to the camera (scale, -+0.3, ty),
     identity 6D rotations and zero betas: each frame gives two plausible
     hands near MANO's mean pose, left hand left, right hand right."""
     import torch
@@ -458,7 +606,7 @@ def _weights(scale):
         params[f"{side}_fuse_conv.weight"] *= 0.05
         params[f"{side}_fuse_conv.weight"][:3] = 0.0
         params[f"{side}_fuse_conv.bias"][:] = torch.cat([
-            torch.tensor([scale, tx, 0.0]), rot6d_identity, torch.zeros(10)])
+            torch.tensor([scale, tx, ty]), rot6d_identity, torch.zeros(10)])
         params[f"{side}_prior_head.out.weight"] *= 0.05
     return params
 
@@ -499,13 +647,16 @@ def phase_main(out_dir):
             paths.append(took)
     wall = time.perf_counter() - t0
     launches = dict(rc.LAUNCHES)
+    overflow = []
     for (name, i, out), took in zip(outs, paths):
         probe = R.render_overflow_probe(
             torch.as_tensor(out["verts"][0]), torch.as_tensor(out["cam_trans"][0]),
             torch.as_tensor(out["detection_flag"][0]),
             apps[name].visualizer.faces.cpu(), size=SIZE)
-        say("main", f"{name} frame {i}: max {int(probe[0])} faces/tile -> "
-            f"{took}; cam scale {out['cam'][0, :, 0].round(3).tolist()}")
+        overflow.append((name, i, int(probe[1])))
+        say("main", f"{name} frame {i}: max {int(probe[0])} faces/tile, "
+            f"{int(probe[1])} tiles above {rc.BIN_CAP} -> {took}; cam scale "
+            f"{out['cam'][0, :, 0].round(3).tolist()}")
         if out["verts"].shape != (1, 2, 778, 3) or out["j3d"].shape != (1, 2, 21, 3):
             raise AssertionError("output shapes")
         if out["_rgba"].shape != (4, SIZE, SIZE):
@@ -521,9 +672,15 @@ def phase_main(out_dir):
     say("main", f"{2 * N_FRAMES} frames through ACRApp.process_frame in "
         f"{wall:.2f} s (first frames include cuDNN set-up); launches "
         f"{launches}; {written} composited frames written")
-    missing = [k for k in ("raster_flat", "raster_binned") if not launches[k]]
-    if missing:
-        raise AssertionError(f"kernels not launched by the main path: {missing}")
+    if not launches["raster_binned"]:
+        raise AssertionError("the main path never launched raster_binned")
+    if launches["raster_flat"] or launches["raster_banded"]:
+        raise AssertionError("the 512 px main path launched another "
+                             f"rasterizer than B1: {launches}")
+    far_over = [int(probe_over) for name, _, probe_over in overflow if
+                name == "far"]
+    if not all(far_over):
+        raise AssertionError(f"far frames without overflow tiles: {far_over}")
     return launches, apps, frames
 
 
@@ -699,67 +856,81 @@ def phase_times(card, apps, frames):
             f"hands: median {walls[10]:.3f} ms, min {walls[0]:.3f}, max "
             f"{walls[-1]:.3f} over 20 calls [{card}]")
 
-    # flat kernel on the "far" frame, which overflows every tier
-    screen, faces, attrs = _main_path_scene(apps["far"])
-    if R.select_tier(screen, faces, SIZE) is not None:
-        raise AssertionError("the far frame should take the flat kernel")
-    tri, inv = rc.face_rows(screen, faces)
-    errs["raster_flat"] = _max_err(rc.raster_flat(tri, inv, attrs, SIZE, SIZE),
-                                   rc.raster_flat_plain(tri, inv, attrs, SIZE, SIZE))
-    # binned kernel on the "near" frame, at the tier render_hands picks
-    screen, faces, attrs = _main_path_scene(apps["near"])
-    cap = R.select_tier(screen, faces, SIZE)
-    if cap is None:
-        raise AssertionError("the near frame should take a binned tier")
-    b_tri, b_inv = rc.face_rows(screen, faces)
-    col_tile = min(rc.COL_TILE, SIZE)
-    tri_t, inv_t, ids_t, counts = rc.bin_faces(rc.face_table(b_tri, attrs),
-                                               b_inv, SIZE, SIZE, col_tile, cap)
-    binned_args = (counts, tri_t, inv_t, ids_t, SIZE, SIZE, col_tile)
-    errs["raster_binned"] = _max_err(rc.raster_binned(*binned_args),
-                                     rc.raster_binned_plain(*binned_args))
-    kernels = {
-        "raster_flat": lambda: rc.raster_flat(tri, inv, attrs, SIZE, SIZE),
-        "raster_flat_plain": lambda: rc.raster_flat_plain(tri, inv, attrs,
-                                                          SIZE, SIZE),
-        "raster_binned": lambda: rc.raster_binned(*binned_args),
-        "raster_binned_plain": lambda: rc.raster_binned_plain(*binned_args),
-    }
-    device = {}
-    for name, fn in kernels.items():
-        times[name] = cuda_ms(fn, iters=10 if "plain" in name else 50)
-        scene = (f"near frame, tier {cap}" if "binned" in name
-                 else "far frame")
-        if "plain" not in name:
-            device[name] = graph_ms(fn)
-        say("times", f"{name} ({SIZE} px, {inv.shape[0]} faces, {scene}): "
-            f"{ms_text(times[name])}"
-            + (f"; device {device[name]:.4f} ms (50 launches in one CUDA "
-               "graph, median of 5 replays)" if name in device else "")
-            + f" [{card}]")
-    # bounds on these inputs: flat reads 26 rows per face and folds the
-    # faces its block cull keeps over the block's pixels (the brute force
-    # of its TPU original folds every face at every pixel: kept as
-    # history); binned reads the live slots' 34 rows (table, inv, id) and
-    # folds them over their tile's pixels
-    n_faces, n_px = inv.shape[0], SIZE * SIZE
-    live = int(counts.sum())
-    pairs = int(rc.flat_cull_mask(tri, inv, SIZE, SIZE).sum())
-    bounds = {
-        "raster_flat": flat_bound(n_faces, pairs, SIZE, SIZE),
-        "raster_binned": bound(
-            4 * (34 * live + counts.numel()) + PIXEL_OUT_BYTES * n_px,
-            EDGE_FLOPS * live * rc.ROW_TILE * col_tile)}
-    brute = bound(4 * 26 * n_faces + PIXEL_OUT_BYTES * n_px,
-                  EDGE_FLOPS * n_faces * n_px)
-    say("times", f"raster_flat bound on these inputs: {bounds['raster_flat'][0]:.4f} "
-        f"ms ({bounds['raster_flat'][1]}; {pairs} live (face, block) pairs "
-        f"of 8x128 px); brute force of the TPU original {brute[0]:.4f} ms "
-        f"({brute[1]})")
-    say("times", f"raster_binned bound on these inputs: "
-        f"{bounds['raster_binned'][0]:.4f} ms ({bounds['raster_binned'][1]}; "
-        f"{live} live binned slots)")
-    return {k: v[0] for k, v in times.items()}, errs, bounds, device
+    # B1 as render_hands runs it (cap 512, unclipped counts, the face
+    # table) on the main path's near frame (every tile fits), its far frame
+    # and the rest-pose overflow scene (tiles above 512): bit for bit
+    # against its plain version and B2, each timed beside B2 on the same
+    # inputs, against its bound
+    scenes = {"near": _main_path_scene(apps["near"]),
+              "far": _main_path_scene(apps["far"]),
+              "overflow": R.prepare_scene(*rest_pose_scene(
+                  torch.device("cuda"), SCENE_DEPTH["overflows"]), SIZE,
+                  1265.0)}
+    b1, device, bounds = {}, {}, {}
+    for name, (screen, faces, attrs) in scenes.items():
+        tri, inv = rc.face_rows(screen, faces)
+        args, table = binned_inputs(tri, inv, attrs, SIZE,
+                                    min(rc.BIN_CAP, faces.shape[0]))
+        binned = lambda: rc.raster_binned(*args, table=table)
+        flat = lambda: rc.raster_flat(tri, inv, attrs, SIZE, SIZE)
+        got, flat_out = binned(), flat()
+        want = rc.raster_binned_plain(*args, table=table)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) and torch.equal(g, f)
+                   for g, w, f in zip(got, want, flat_out)):
+            raise AssertionError(f"B1 on the {name} frame differs from its "
+                                 "plain version or from B2")
+        counts = args[0]
+        n_over = int((counts > rc.BIN_CAP).sum())
+        if (n_over > 0) != (name != "near"):
+            raise AssertionError(f"the {name} frame has {n_over} tiles "
+                                 f"above {rc.BIN_CAP}")
+        b_bound, live, pairs = binned_bound(tri, inv, counts, args[3], SIZE,
+                                            SIZE, args[6])
+        r = {"ms": cuda_ms(binned, iters=50), "device_ms": graph_ms(binned),
+             "flat_ms": cuda_ms(flat, iters=50), "flat_device_ms": graph_ms(flat),
+             "bound": b_bound, "max": int(counts.max()), "over": n_over,
+             "live": live, "pairs": pairs}
+        if name == "near":
+            errs["raster_binned"] = 0.0          # equal bit for bit above
+            times["raster_binned_plain"] = cuda_ms(
+                lambda: rc.raster_binned_plain(*args, table=table), iters=5)
+            bounds["raster_binned"] = b_bound
+            device["raster_binned"] = r["device_ms"]
+            times["raster_binned"] = r["ms"]
+        b1[name] = r
+        say("times", f"raster_binned on the {name} frame ({SIZE} px, "
+            f"{faces.shape[0]} faces, max {r['max']} faces/tile, {n_over} "
+            f"tiles above {rc.BIN_CAP}, {live} live (face, tile) pairs, "
+            f"{pairs} folded (face, block) pairs): "
+            f"equal to its plain version and to raster_flat bit for bit; "
+            f"{ms_text(r['ms'])}; device {r['device_ms']:.4f} ms (50 launches "
+            f"in one CUDA graph, median of 5 replays); bound "
+            f"{b_bound[0]:.4f} ms ({b_bound[1]}); raster_flat on the same "
+            f"inputs {r['flat_ms'][0]:.4f} ms, device "
+            f"{r['flat_device_ms']:.4f} ms [{card}]")
+    say("times", f"raster_binned_plain, near frame: "
+        f"{ms_text(times['raster_binned_plain'])} [{card}]")
+
+    # render_hands at 512 px as the app calls it: no host sync on either
+    # frame, one B1 launch, and its time back to back and in a CUDA graph
+    for name, app in apps.items():
+        out = {k: torch.as_tensor(app.last_output[k]).cuda()
+               for k in ("verts", "cam_trans", "detection_flag")}
+        render = lambda: app.visualizer.render_rgba_device(out)
+        render()                                         # warm-up
+        rc.reset_launch_counts()
+        sync_free(render)
+        launched = {k: v for k, v in rc.LAUNCHES.items() if v}
+        if launched != {"raster_binned": 1}:
+            raise AssertionError(f"render_hands on the {name} frame: {launched}")
+        t = cuda_ms(render, iters=20)
+        times[f"render_{name}"] = t
+        say("times", f"render_hands at {SIZE} px, {name} frame: no host sync "
+            f"under set_sync_debug_mode('error'), launches {launched}; "
+            f"{ms_text(t)}; device {graph_ms(render, n=20):.4f} ms (20 calls "
+            f"in one CUDA graph) [{card}]")
+    return {k: v[0] for k, v in times.items()}, errs, bounds, device, b1
 
 
 def phase_times_stream(card, weights, out_dir):
@@ -1073,6 +1244,9 @@ def _chunk_breakdown(card, app, image, offsets, smooth_sequence):
             say("times", f"b{CHUNK} chunk step stage {name}: "
                 f"{ms_text(cuda_ms(fn, iters=5, reps=3, warmup=1))} [{card}]")
     step = lambda: app.chunk_step(image, offsets)
+    n_syncs, where = count_syncs(step)
+    say("times", f"b{CHUNK} chunk step: {n_syncs} host syncs left (torch's "
+        f"sync debug mode, 'warn'), at {json.dumps(where)}")
     unprofiled = cuda_ms(step, iters=3, reps=3, warmup=1)[0]
     n_events, busy, events = device_profile(step, calls=1)
     top = sorted(events, key=_self_us, reverse=True)[:5]
@@ -1242,15 +1416,18 @@ def main():
     card, _ = phase_env()
     phase_build()
     kin = phase_kernels()
-    banded_err, flat_hi = phase_kernels_banded(card)
+    banded_err, serpentine_flat_err = phase_kernels_banded()
     mano_err = phase_kernels_mano()
     out_dir = os.path.join(ROOT, "build", "chip_smoke_out")
     launches, apps, frames = phase_main(out_dir)
+    flat_hi = phase_band_overflow(card, os.path.join(out_dir, "band"))
     weights = _weights(CAM_SCALE["near"])
     stream_launches = phase_stream(weights, os.path.join(out_dir, "stream"))
     phase_device_vs_cpu(apps, frames)
     phase_device_vs_cpu_t(weights, os.path.join(out_dir, "t"))
-    times, errs, bounds, device = phase_times(card, apps, frames)
+    times, errs, bounds, device, b1 = phase_times(card, apps, frames)
+    device["raster_flat"], bounds["raster_flat"] = (flat_hi["device_ms"],
+                                                    flat_hi["bound"])
     stimes, stream_err, bounds["raster_banded"], device["raster_banded"] = \
         phase_times_stream(card, weights, os.path.join(out_dir, "times"))
     frames_dir = os.path.join(out_dir, "throughput_frames")
@@ -1265,8 +1442,10 @@ def main():
     src = "acr_tpu_torch/csrc/raster.cu"
     # ms: back-to-back calls by CUDA events (the host's issue included
     # where it is slower than the device); device_ms: launches captured in
-    # one CUDA graph and replayed. raster_flat's numbers are the far frame
-    # at 512 px; its 2048 px run on the band-overflow scene is printed above
+    # one CUDA graph and replayed. raster_flat's numbers are its path's: the
+    # app's band-overflow frame at 2048 px (its 512 px far-frame times, beside
+    # B1's, are printed above); raster_binned's the near frame, with the
+    # far frame and the overflow scene under "scenes"
     entry = lambda name, replaces, source, n, err, ms, plain_ms, lib_ms: {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
@@ -1279,15 +1458,22 @@ def main():
                  ttimes[f"mano_fused_plain_{CHUNK}"],
                  ttimes[f"mano_library_{CHUNK}"])
     mano["library_device_ms"] = tdevice[f"mano_library_{CHUNK}"]
+    binned = entry("raster_binned", "acr_tpu/viz/raster_pallas.py:193", src,
+                   launches["raster_binned"],
+                   max(kin["binned_err"], errs["raster_binned"]),
+                   times["raster_binned"], times["raster_binned_plain"], None)
+    binned["scenes"] = {
+        name: {"ms": r["ms"][0], "device_ms": r["device_ms"],
+               "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+               "max_faces_per_tile": r["max"], "tiles_over_cap": r["over"],
+               "folded_pairs": r["pairs"], "flat_device_ms": r["flat_device_ms"]}
+        for name, r in b1.items()}
     print(json.dumps({"kernels": [
         entry("raster_flat", "acr_tpu/viz/raster_pallas.py:106", src,
-              launches["raster_flat"],
-              max(kin["flat_err"], errs["raster_flat"], flat_hi["err"]),
-              times["raster_flat"], times["raster_flat_plain"], None),
-        entry("raster_binned", "acr_tpu/viz/raster_pallas.py:193", src,
-              launches["raster_binned"],
-              max(kin["binned_err"], errs["raster_binned"]),
-              times["raster_binned"], times["raster_binned_plain"], None),
+              flat_hi["launches"],
+              max(kin["flat_err"], serpentine_flat_err, flat_hi["err"]),
+              flat_hi["ms"], flat_hi["plain_ms"], None),
+        binned,
         entry("raster_banded", "acr_tpu/viz/raster_pallas.py:298", src,
               stream_launches["raster_banded"], max(banded_err, stream_err),
               stimes["raster_banded"], stimes["raster_banded_plain"], None),

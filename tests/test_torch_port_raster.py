@@ -100,6 +100,15 @@ def test_plain_rasterize_without_attrs():
     np.testing.assert_allclose(bary_g.numpy(), np.asarray(bary_w), atol=1e-5)
 
 
+def jax_tier(max_faces, f_total):
+    """The binned tier JAX's ``lax.switch`` takes for a frame whose
+    fullest tile holds ``max_faces`` faces (acr_tpu/viz/raster.py:414-418):
+    idx = the number of tiers below the max; None for the flat kernel."""
+    tiers = [c for c in (128, 256, 512) if c < f_total]
+    idx = sum(max_faces > c for c in tiers)
+    return tiers[idx] if idx < len(tiers) else None
+
+
 def tile_scene(n_in_tile, size=128, seed=3):
     """``n_in_tile`` small live triangles inside the first 8-row tile,
     the rest of the frame empty: the tile's count is ``n_in_tile``."""
@@ -131,7 +140,10 @@ def test_counts_tiers_and_overflow(n_in_tile):
     g_rows, g_inv = tc.face_rows(t(screen), t(faces))
     table = torch.cat([g_rows, torch.zeros(7, g_rows.shape[1])])
     tt = tc.bin_faces(table, g_inv, 128, 128, 128, cap)
-    np.testing.assert_array_equal(tt[3].numpy(), np.asarray(jt[3]))     # counts
+    # counts: the port's are unclipped, JAX's clipped to the cap
+    assert int(tt[3].max()) == n_in_tile
+    np.testing.assert_array_equal(tt[3].clamp(max=cap).numpy(),
+                                  np.asarray(jt[3]))
     np.testing.assert_array_equal(tt[2].numpy(), np.asarray(jt[2])[:, 0])  # ids
     np.testing.assert_array_equal(tt[0].numpy(), np.asarray(jt[0]))
     mx_j, n_j = jp.bin_overflow_stats(jnp.asarray(screen), jnp.asarray(faces),
@@ -139,11 +151,9 @@ def test_counts_tiers_and_overflow(n_in_tile):
     mx_t, n_t = tc.bin_overflow_stats(t(screen), t(faces), 128, 128, cap=512)
     assert (int(mx_t), int(n_t)) == (int(mx_j), int(n_j))
     assert int(mx_t) == n_in_tile
-    # the tier JAX's lax.switch would take: idx = #tiers below the max
-    tiers = [c for c in (128, 256, 512) if c < faces.shape[0]]
-    idx = sum(int(mx_j) > c for c in tiers)
-    want = tiers[idx] if idx < len(tiers) else None
-    assert traster.select_tier(t(screen), t(faces), 128) == want
+    # the tier JAX's lax.switch would take, from the port's count
+    want = jax_tier(int(mx_j), faces.shape[0])
+    assert jax_tier(int(mx_t), faces.shape[0]) == want
     if n_in_tile > 128:
         # above capacity the highest ids drop, as in the Pallas prestage
         got = tc.rasterize_binned(t(screen), t(faces), 128, 128, bin_cap=128)
@@ -190,7 +200,8 @@ def test_render_hands_matches_jax(dist, flags, camera, tier):
     screen, all_faces, _ = traster._scene_screen_faces(
         (t(verts) + t(cam_trans)[:, None]).reshape(-1, 3), t(det),
         t(faces.astype(np.int64)), 778, 128, kw["focal"], camera, 22.5)
-    assert traster.select_tier(screen, all_faces, 128) == tier
+    mx, _ = tc.bin_overflow_stats(screen, all_faces, 128, 128)
+    assert jax_tier(int(mx), all_faces.shape[0]) == tier
     assert (got[..., 3] > 0).sum() > 50
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
     planar = traster.render_hands(t(verts), t(cam_trans), t(det),
