@@ -7,12 +7,14 @@ Layout:
   config    — typed dataclass config + YAML overlay + CLI (copy of acr_tpu.config)
   io        — flax-path checkpoints -> state dicts, seeded init, writers
   models    — HRNet backbone, ACR heads and part module, MANO
-  ops       — rotation math
+  ops       — rotation math, the fused MANO kernel's wrapper, the CUDA
+              build, W8A8 int8 convolutions and their calibration
   parser    — center-map decoding, parameter sampling, cross-hand prior
   pipeline  — preprocessing, inference chain, projection, OneEuro filter,
               capture, streaming loop, the app's four demo modes
   utils     — meters and stage timers (copy of acr_tpu.utils.meters)
-  viz       — rasterizer (CUDA kernels in csrc/raster.cu) and compositing
+  viz       — rasterizer (CUDA kernels in csrc/raster.cu), compositing and
+              the auxiliary views
 """
 
 __version__ = "0.1.0"

@@ -8,7 +8,10 @@ with '.' and renaming the leaf:
 * conv ``kernel`` HWIO -> ``weight`` OIHW;
 * ``nn.Dense`` ``kernel`` (in, out) -> ``weight`` (out, in);
 * ``FoldedBN`` ``scale`` / ``bias`` and every ``bias`` keep their names;
-* ``LocallyConnected.w`` (O, C, J) is kept as is.
+* ``LocallyConnected.w`` (O, C, J) is kept as is;
+* a quantized tree's int8 ``kernel_q`` HWIO -> OIHW int8, and its fp32
+  ``wscale`` (Co,) and ``ascale`` (``()`` or (Ci,)) as they are
+  (``ops.quant.QuantConv``); every other leaf becomes float32.
 
 The canonical tree only: checkpoints on disk are canonical
 (``acr_tpu/pipeline/infer.py:183-193``). The merge-mode fusion head
@@ -19,6 +22,7 @@ takes it out first.
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -55,7 +59,8 @@ def split_parser(flat: Dict[str, np.ndarray]
 
 def from_flax(flat: Dict[str, np.ndarray],
               net: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
-    """{flax path: array} -> state dict of ``net`` (default: canonical ACRNet).
+    """{flax path: array} -> state dict of ``net`` (default: canonical
+    float ACRNet; a quantized tree needs ``ACRNet(quantize=mode)``).
 
     Raises KeyError on any leaf the network does not use and on any
     parameter the tree does not provide, and ValueError on a shape that
@@ -67,7 +72,10 @@ def from_flax(flat: Dict[str, np.ndarray],
     for path, value in flat.items():
         parts = path.split("/")
         leaf = parts[-1]
-        arr = np.asarray(value, np.float32)
+        if leaf == "kernel_q":
+            arr = np.asarray(value, np.int8).transpose(3, 2, 0, 1)
+        else:
+            arr = np.asarray(value, np.float32)
         if leaf == "kernel":
             if arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
@@ -91,7 +99,15 @@ def from_flax(flat: Dict[str, np.ndarray],
 
 
 def load_params(path: str, net: Optional[nn.Module] = None):
-    """npz of flax paths -> (state dict, merge-mode fusion head or None)."""
+    """npz of flax paths -> (state dict, merge-mode fusion head or None).
+
+    The JAX package also reads an orbax checkpoint directory
+    (``acr_tpu/io/params.py:78-83``); the port does not."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"not ported to acr_tpu_torch yet: model_path={path!r} is a "
+            "directory (an orbax checkpoint); the port reads npz files of "
+            "flax paths: ROADMAP C5")
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     net_flat, fusion = split_parser(flat)

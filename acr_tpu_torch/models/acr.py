@@ -13,7 +13,10 @@ in its canonical form:
   offsets and a Linear head regresses shape; the 106-vector refines the
   global params map per ``offset_mode``.
 
-The network runs NCHW inside and returns the JAX package's NHWC maps.
+The network runs NCHW inside and returns the JAX package's NHWC maps,
+in its compute ``dtype`` (bf16 maps stay bf16; the parser casts the
+vectors it samples). ``quantize`` swaps the convs of the int8 modes for
+``ops.quant.QuantConv`` (``ops.quant.is_quant_site``).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from acr_tpu_torch.models.layers import (
     downsample_nearest_half,
     get_coord_maps,
 )
+from acr_tpu_torch.ops.quant import quantize_modules
 
 N_PARTS = 32          # 16 per hand; channel 0 of the segm map is background
 PARAMS_CH = 106       # 6D rots (96) + betas (10)
@@ -97,10 +101,14 @@ class ACRNet(nn.Module):
     how the part module's pooled 106-vector refines the global params
     map: 'concat' (1x1 conv over the concatenation, the reference's
     forward), 'offset' (add to the non-cam channels) or 'replace'.
+    ``dtype`` is the compute dtype of the input normalization; the caller
+    casts the float parameters to it (``pipeline.infer``). ``quantize``
+    is 'none' or an int8 mode of ``ops.quant``.
     """
 
     def __init__(self, inter_prior: bool = True, head_block_num: int = 2,
-                 params_ch: int = PARAMS_CH, offset_mode: str = "concat"):
+                 params_ch: int = PARAMS_CH, offset_mode: str = "concat",
+                 dtype: torch.dtype = torch.float32, quantize: str = "none"):
         super().__init__()
         if offset_mode not in ("offset", "replace", "concat"):
             raise ValueError(f"offset_mode must be offset|replace|concat, "
@@ -108,7 +116,7 @@ class ACRNet(nn.Module):
         self.inter_prior = inter_prior
         self.params_ch = params_ch
         self.offset_mode = offset_mode
-        self.backbone = HRNetBackbone()
+        self.backbone = HRNetBackbone(dtype)
         self.segm = SegmNet()
         kinds = {"params": params_ch, "center": 1, "cam": CAM_CH}
         if inter_prior:
@@ -130,6 +138,8 @@ class ACRNet(nn.Module):
                 self.add_module(f"{side}_fuse_conv", conv(
                     2 * (CAM_CH + params_ch), CAM_CH + params_ch, 1, pad=0,
                     use_bias=True))
+        if quantize != "none":
+            quantize_modules(self, quantize)
 
     def _part_refine(self, side: str, params_map: torch.Tensor,
                      contact: torch.Tensor, shape: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,10 @@ multi-resolution stages (1 module / 2 branches, 4 / 3, 3 / 4, channels
 highest-resolution branch, (B, 32, 128, 128) for a 512x512 input
 (reference: acr/model.py:571-881). The input normalization
 ``x / 255 * 2 - 1`` stays inside the module, so callers feed raw uint8
-frames, as NHWC ``(B, S, S, 3)`` like the JAX package.
+frames, as NHWC ``(B, S, S, 3)`` like the JAX package. It runs in the
+backbone's ``dtype`` (``acr_tpu/models/hrnet.py:251``): bf16 normalizes
+in bf16, and every layer computes in the dtype of its input and
+parameters.
 """
 
 from __future__ import annotations
@@ -120,8 +123,9 @@ class SegmNet(nn.Module):
 class HRNetBackbone(nn.Module):
     """Stem + layer1 + 3 multi-resolution stages; returns (B,32,S/4,S/4)."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.stem1 = ConvBN(3, 64, kernel=3, stride=2)
         self.stem2 = ConvBN(64, 64, kernel=3, stride=2)
         for k in range(4):
@@ -142,7 +146,7 @@ class HRNetBackbone(nn.Module):
 
     def forward(self, image_uint8: torch.Tensor) -> torch.Tensor:
         """image_uint8 (B, S, S, 3) -> features (B, 32, S/4, S/4)."""
-        x = image_uint8.permute(0, 3, 1, 2).to(torch.float32)
+        x = image_uint8.permute(0, 3, 1, 2).to(self.dtype)
         x = x / 255.0 * 2.0 - 1.0
         x = self.stem2(self.stem1(x))
         for k in range(4):

@@ -19,6 +19,12 @@ path, ``_run_batched``: a producer thread decodes and preprocesses the
 next chunk of frames while the device runs ``chunk_step`` on the current
 one (forward over the chunk, OneEuro over its frames with ``-t``, the
 MANO refine, a render per frame), then one readback per chunk.
+
+The auxiliary ``show_items`` (org_img, pj2d, centermap, j3d) are written
+beside each rendered frame in image, folder and video mode, as
+``<stem>_<item><ext>`` (``_aux_path``); ``centermap`` has the forward
+return its centre maps in fp32 (``return_maps``), the chunk step's
+included. The webcam stream shows the mesh only, as in JAX.
 """
 
 from __future__ import annotations
@@ -82,6 +88,10 @@ class ACRApp:
             from acr_tpu_torch.viz.visualizer import Visualizer
             self.visualizer = Visualizer(cfg, self.pipeline.faces,
                                          device=self.pipeline.device)
+        # the auxiliary views drawn beside each rendered frame
+        self.aux_items = [] if self.visualizer is None else \
+            [i for i in cfg.show_items if i != "mesh"]
+        self._need_maps = "centermap" in self.aux_items
         self.filter_state = init_two_hand_filter(self.pipeline.device)
         self.output_dir = cfg.output_dir or "./demos_outputs/"
         self.timer = StageTimer()
@@ -92,12 +102,14 @@ class ACRApp:
         self._name_map: Dict[str, str] = {}
         self._used_names: set = set()
 
-    def _issue(self, meta: Dict, probe: bool) -> Dict[str, torch.Tensor]:
+    def _issue(self, meta: Dict, probe: bool, return_maps: bool = False
+               ) -> Dict[str, torch.Tensor]:
         """Forward, OneEuro + refine with ``-t``, render and capacity
         probe, issued on the device; nothing is read back but the banded
         render's gate. The planar (4, S, S) RGBA rides under ``_rgba``."""
         with torch.no_grad():
-            out = self.pipeline(meta["image"], meta["offsets"])
+            out = self.pipeline(meta["image"], meta["offsets"],
+                                return_maps=return_maps)
             if self.cfg.temporal_optimization:
                 # per-hand gating by the detection flag happens on device
                 self.filter_state, poses, betas = smooth_two_hands(
@@ -120,13 +132,14 @@ class ACRApp:
         over the chunk's frames in order (the state carried across
         chunks) and the MANO refine on the smoothed poses; a render per
         frame into ``_rgba`` (B, 4, S, S); with the probe on, the chunk's
-        reduced probe. Nothing is read back but the banded render's gates
+        reduced probe; the centre maps when the ``centermap`` view is
+        asked for. Nothing is read back but the banded render's gates
         (at 1024 px and above), one per frame."""
         dev = self.pipeline.device
         image = torch.as_tensor(image).to(dev)
         offsets = torch.as_tensor(offsets, dtype=torch.float32).to(dev)
         with torch.no_grad():
-            out = self.pipeline(image, offsets)
+            out = self.pipeline(image, offsets, return_maps=self._need_maps)
             if self.cfg.temporal_optimization:
                 self.filter_state, poses, betas = smooth_sequence(
                     self.filter_state, out["poses"], out["betas"],
@@ -147,10 +160,12 @@ class ACRApp:
 
     def device_step(self, meta: Dict) -> Dict[str, np.ndarray]:
         """The device work of ``process_frame`` (the capacity probe every
-        ``raster_overflow_every`` frames), then one readback."""
+        ``raster_overflow_every`` frames, the centre maps for the
+        ``centermap`` view), then one readback."""
         every = self.cfg.raster_overflow_every
         out = self._issue(meta, probe=bool(every)
-                          and self._frame_idx % every == 0)
+                          and self._frame_idx % every == 0,
+                          return_maps=self._need_maps)
         self._frame_idx += 1
         return readback(out)
 
@@ -229,9 +244,23 @@ class ACRApp:
                     out["_rgba"], bgr_frame, meta, planar=True)
             with self.timer.stage("encode"):
                 self._emit_frame(rendered, path)
+            if self.aux_items:
+                self._emit_aux(out, meta, path)
         else:
             self._emit_frame(bgr_frame, path)
         return results
+
+    def _emit_aux(self, out: Dict, meta: Dict, path: str):
+        """Write (or show) one frame's auxiliary views; ``out`` holds the
+        frame's host outputs with a batch axis of 1."""
+        for name, view in self.visualizer.aux_views(
+                out, meta, self.aux_items).items():
+            self._emit_frame(view[:, :, ::-1], self._aux_path(path, name))
+
+    @staticmethod
+    def _aux_path(path: str, item: str) -> str:
+        base, ext = os.path.splitext(os.path.basename(path))
+        return f"{base}_{item}{ext or '.jpg'}"
 
     def _emit_frame(self, bgr_frame: np.ndarray, path: str):
         if self.cfg.demo_mode == "webcam" or not self.cfg.save_visualization_on_img:
@@ -410,6 +439,9 @@ class ACRApp:
                     rendered = self.visualizer.compose_on_frame(
                         rgba[k], frame, meta, planar=True)
                 self._emit_frame(rendered, path)
+                if self.aux_items:
+                    self._emit_aux({key: v[k:k + 1] for key, v in
+                                    chunk.items()}, meta, path)
         return results
 
     def run_webcam(self):

@@ -13,14 +13,22 @@ issues device work only and reads nothing back.
 fp32 means fp32: building a pipeline turns TF32 off for cuDNN
 convolutions and cuBLAS matmuls (cuDNN runs fp32 convolutions in TF32
 by default, about three significant digits).
+
+``model_precision="bf16"`` runs the network in bf16 on weights cast once
+at load; the maps stay bf16 and the parser casts what it samples, so
+MANO and everything after it run in fp32. ``quantize`` keeps the float
+weights, calibrates the int8 activation scales at load on the committed
+frames (``ops.quant``) and serves the W8A8 network in the compute dtype.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from acr_tpu_torch.config import Config
 from acr_tpu_torch.io.params import load_params
@@ -31,6 +39,10 @@ from acr_tpu_torch.ops.mano_kernel import (
     build_kernel_data,
     mano_forward_fused,
 )
+from acr_tpu_torch.ops.quant import (
+    committed_calibration_frames,
+    quantize_for_net,
+)
 from acr_tpu_torch.parser.parse import parse_outputs
 from acr_tpu_torch.pipeline.project import (
     estimate_translation_ls,
@@ -39,21 +51,19 @@ from acr_tpu_torch.pipeline.project import (
 )
 from acr_tpu_torch.utils.device import resolve_device
 
+log = logging.getLogger("acr_tpu_torch")
+
 
 def check_slice(cfg: Config) -> None:
     """Raise NotImplementedError for every option value the port does
     not run yet, naming its ROADMAP item. The TPU layout rewrites
     (``s2d_*``, ``merged_heads``) are not options here: the port builds
-    the canonical network whatever they say."""
+    the canonical network whatever they say. An orbax ``model_path``
+    raises in ``io.params.load_params`` (C5)."""
     unported = [
-        (cfg.model_precision != "fp32",
-         f"model_precision={cfg.model_precision!r}: ROADMAP A6 (bf16)"),
-        (cfg.quantize != "none", f"quantize={cfg.quantize!r}: ROADMAP A13"),
         (cfg.data_parallel > 1,
          f"data_parallel={cfg.data_parallel}: ROADMAP A14"),
         (cfg.renderer == "native", "renderer='native': ROADMAP A15"),
-        (bool(set(cfg.show_items) - {"mesh"}),
-         f"show_items={cfg.show_items!r} (aux views): ROADMAP A10"),
         (not cfg.jit_translation_solve,
          "jit_translation_solve=False (native host solve): ROADMAP A15"),
         (cfg.profile_dir is not None, "profile_dir: ROADMAP A15"),
@@ -67,6 +77,17 @@ def set_fp32_math() -> None:
     """Full fp32 in cuDNN convolutions and cuBLAS matmuls (no TF32)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def cast_params(net: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast every float parameter of ``net`` to ``dtype`` once, in place:
+    the bf16 path's pre-cast weights, rounded to nearest even like JAX's
+    cast (``acr_tpu/pipeline/infer.py:200-211``). QuantConv's int8 kernel
+    and fp32 scales are buffers and keep their dtypes. A no-op in fp32."""
+    for p in net.parameters():
+        if p.dtype != dtype:
+            p.data = p.data.to(dtype)
+    return net
 
 
 class ManoAuto(NamedTuple):
@@ -176,11 +197,11 @@ def forward_fn(net: ACRNet, mano_l, mano_r, image: torch.Tensor,
 class ACRPipeline:
     """Owns the network, the MANO assets and the device.
 
-    ``params`` is a state dict of the canonical ACRNet (``init_params``
-    or ``io.params.from_flax``); None loads ``cfg.model_path``, an npz
-    of flax paths. ``merge_params`` is the merge-mode fusion head.
-    ``device`` is ``cuda`` unless the caller asks for the CPU; without a
-    card a CUDA device raises.
+    ``params`` is a float state dict of the canonical ACRNet
+    (``init_params`` or ``io.params.from_flax``); None loads
+    ``cfg.model_path``, an npz of flax paths. ``merge_params`` is the
+    merge-mode fusion head, kept in fp32. ``device`` is ``cuda`` unless the
+    caller asks for the CPU; without a card a CUDA device raises.
     """
 
     def __init__(self, cfg: Config, params: Optional[Dict[str, torch.Tensor]] = None,
@@ -189,16 +210,19 @@ class ACRPipeline:
         self.device = resolve_device(device)
         set_fp32_math()
         self.cfg = cfg
+        self.dtype = (torch.bfloat16 if cfg.model_precision == "bf16"
+                      else torch.float32)
         if params is None:
             params, merge_params = load_params(cfg.model_path)
-        self.net = ACRNet(inter_prior=cfg.inter_prior,
-                          head_block_num=cfg.head_block_num,
-                          params_ch=cfg.map_channels,
-                          offset_mode=cfg.offset_mode)
-        self.net.load_state_dict(params, strict=True)
-        self.net.eval().requires_grad_(False).to(self.device)
         self.merge_params = None if merge_params is None else {
             k: v.to(self.device) for k, v in merge_params.items()}
+        if cfg.quantize == "none":
+            self.net = self._network(params)
+        else:
+            # W8A8 (ops/quant.py): calibrated at load on the committed
+            # frames; .calibrate(frames) recalibrates from the float weights
+            self._float_params = params
+            self.calibrate()
         self.mano_l, faces_l = load_mano_model(cfg.mano_model_path, "left",
                                                device=self.device)
         self.mano_r, faces_r = load_mano_model(cfg.mano_model_path, "right",
@@ -213,6 +237,52 @@ class ACRPipeline:
         elif cfg.use_pallas_mano == "auto":
             self.mano_l = ManoAuto(self.mano_l, build_kernel_data(self.mano_l))
             self.mano_r = ManoAuto(self.mano_r, build_kernel_data(self.mano_r))
+
+    def _network(self, state_dict: Dict[str, torch.Tensor],
+                 quantize: str = "none") -> ACRNet:
+        """The network on the device, in the compute dtype, holding
+        ``state_dict`` (float, or quantized for ``quantize``)."""
+        cfg = self.cfg
+        net = ACRNet(inter_prior=cfg.inter_prior,
+                     head_block_num=cfg.head_block_num,
+                     params_ch=cfg.map_channels,
+                     offset_mode=cfg.offset_mode, dtype=self.dtype,
+                     quantize=quantize)
+        net.load_state_dict(state_dict, strict=True)
+        net.eval().requires_grad_(False).to(self.device)
+        return cast_params(net, self.dtype)
+
+    def calibrate(self, images=None) -> None:
+        """(Re)quantize the int8 path: calibrate the activation scales on
+        ``images`` (a list of uint8 (B, S, S, 3) batches) through the float
+        network in the compute dtype, and quantize the float weights.
+
+        By default the committed real-frame set (``model_data/calib``),
+        or, where it was not built for ``input_size``, the synthetic pair
+        with a logged warning. Pass deployment frames for representative
+        scales."""
+        if self.cfg.quantize == "none":
+            raise ValueError("calibrate() needs quantize=int8|int8_pc|"
+                             "int8_r|int4w")
+        if images is None:
+            images = committed_calibration_frames(self.cfg.input_size)
+            if images is None:
+                log.warning(
+                    "int8 activation scales calibrated on SYNTHETIC frames "
+                    "(uniform noise + mid-gray); call "
+                    "ACRPipeline.calibrate(real_frames) before production "
+                    "serving for representative scales (ops/quant.py)")
+            else:
+                log.info("int8 activation scales calibrated on the "
+                         "committed real-frame set (model_data/calib); call "
+                         "ACRPipeline.calibrate(real_frames) to recalibrate "
+                         "for a specific deployment")
+        float_net = self._network(self._float_params)
+        quantized = quantize_for_net(float_net, self._float_params,
+                                     self.cfg.quantize, images=images,
+                                     input_size=self.cfg.input_size)
+        del float_net
+        self.net = self._network(quantized, self.cfg.quantize)
 
     @torch.no_grad()
     def __call__(self, image, offsets, return_maps: bool = False

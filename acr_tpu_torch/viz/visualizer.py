@@ -6,12 +6,14 @@ over the network input (visible weight 0.9), then paste the square
 render back into the original frame through the inverse of the pad/crop
 offsets ('put_org', visualization.py:196-220), into a 4x frame above
 1000 px of render. The render runs on the pipeline's device; compositing
-is host numpy + cv2.
+is host numpy + cv2. The auxiliary views of ``show_items`` (keypoints,
+centre heat maps, the 3D skeleton) are host copies of the JAX package's,
+held equal to them by ``tests/test_torch_port_aux.py``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -19,6 +21,44 @@ import torch
 from acr_tpu_torch.config import Config
 from acr_tpu_torch.utils.device import resolve_device
 from acr_tpu_torch.viz.raster import render_hands, render_overflow_probe
+
+# MANO 21-joint output order (models/mano.py REORDER_21): wrist, then
+# thumb/index/middle/ring/pinky chains base->tip.
+_FINGERS = ("thumb", "index", "middle", "ring", "pinky")
+# InterHand drawing order maps fingertips first (reference:
+# acr/visualization.py:25)
+MANO2INTERHAND = np.array([4, 3, 2, 1, 8, 7, 6, 5, 12, 11, 10, 9,
+                           16, 15, 14, 13, 20, 19, 18, 17, 0])
+
+
+def hand_skeleton():
+    """InterHand-style 21-joint skeleton: (name, parent_id) list.
+
+    Chains of 4 per finger, tips at indices 4k, wrist last (the layout
+    of the reference's mano/skeleton.txt, regenerated procedurally).
+    """
+    skeleton = []
+    for f_idx, finger in enumerate(_FINGERS):
+        for level in range(4):            # 4 = tip ... 1 = base
+            joint_id = f_idx * 4 + level
+            parent = joint_id + 1 if level < 3 else 20
+            skeleton.append({"name": f"{finger}{4 - level}",
+                             "parent_id": parent})
+    skeleton.append({"name": "wrist", "parent_id": -1})
+    return skeleton
+
+
+_FINGER_RGB = {
+    "thumb": (255, 0, 0), "index": (0, 255, 0), "middle": (255, 128, 0),
+    "ring": (0, 128, 255), "pinky": (255, 0, 255), "wrist": (230, 230, 0),
+}
+
+
+def _joint_color(name: str):
+    for finger, rgb in _FINGER_RGB.items():
+        if name.startswith(finger):
+            return rgb
+    return (230, 230, 0)
 
 
 class Visualizer:
@@ -29,6 +69,7 @@ class Visualizer:
         self.cfg = cfg
         self.faces = torch.as_tensor(faces.astype(np.int64),
                                      device=resolve_device(device))
+        self.skeleton = hand_skeleton()
         # 'pt3d' mirrors the pytorch3d backend's rule: FoVPerspective when
         # perspective_proj else FoVOrthographic (renderer_pt3d.py:74-110)
         cm = cfg.camera_model
@@ -107,3 +148,68 @@ class Visualizer:
         pasted = self.paste_back(blended, bgr_frame[:, :, ::-1],
                                  meta["offsets"][0])
         return pasted[:, :, ::-1]
+
+    def draw_keypoints(self, image_rgb: np.ndarray, kp2d: np.ndarray,
+                       line_width: int = 3, radius: int = 3) -> np.ndarray:
+        """Draw one hand's 21 projected joints + bones (PIL, uint8 RGB)."""
+        from PIL import Image, ImageDraw
+        kps = kp2d[MANO2INTERHAND]
+        img = Image.fromarray(image_rgb.astype(np.uint8))
+        draw = ImageDraw.Draw(img)
+        for i, joint in enumerate(self.skeleton):
+            pid = joint["parent_id"]
+            color = _joint_color(joint["name"])
+            if pid != -1:
+                parent_color = _joint_color(self.skeleton[pid]["name"])
+                draw.line([tuple(kps[i]), tuple(kps[pid])],
+                          fill=parent_color, width=line_width)
+            draw.ellipse((kps[i][0] - radius, kps[i][1] - radius,
+                          kps[i][0] + radius, kps[i][1] + radius), fill=color)
+        return np.asarray(img)
+
+    def aux_views(self, out: Dict, meta: Dict,
+                  items: Sequence[str]) -> Dict[str, np.ndarray]:
+        """Auxiliary visualizations per show_items (reference:
+        acr/visualization.py:174-254 'org_img'/'pj2d'/'centermap'/'j3d').
+        Returns {item_name: uint8 RGB image}."""
+        views: Dict[str, np.ndarray] = {}
+        input_rgb = np.asarray(meta["image"][0])
+        det = np.asarray(out["detection_flag"])[0]
+        for item in items:
+            if item == "org_img":
+                views["org_img"] = input_rgb
+            elif item == "pj2d":
+                img = input_rgb.copy()
+                pj2d_px = (np.asarray(out["pj2d"])[0] + 1) / 2 * input_rgb.shape[0]
+                for hand in range(2):
+                    if det[hand]:
+                        img = self.draw_keypoints(img, pj2d_px[hand])
+                views["pj2d"] = np.asarray(img)
+            elif item == "centermap" and "l_center_map" in out:
+                l = self.make_heatmap_overlay(input_rgb,
+                                              np.asarray(out["l_center_map"])[0])
+                r = self.make_heatmap_overlay(input_rgb,
+                                              np.asarray(out["r_center_map"])[0])
+                views["centermap"] = np.concatenate([l, r], axis=1)
+            elif item == "j3d":
+                from acr_tpu_torch.viz.skeleton3d import Plotter3dPoses
+                plotter = Plotter3dPoses(
+                    canvas_size=input_rgb.shape[:2])
+                poses = [np.asarray(out["j3d"])[0, h] for h in range(2)
+                         if det[h]]
+                colors = [(255, 0, 0), (0, 255, 255)]
+                views["j3d"] = plotter.encircle_plot(poses, colors[:len(poses)])
+        return views
+
+    def make_heatmap_overlay(self, image_rgb: np.ndarray,
+                             heatmap: np.ndarray) -> np.ndarray:
+        """JET-colormap center-heatmap over the image (reference:
+        acr/visualization.py:280-300)."""
+        import cv2
+        h = np.asarray(heatmap)
+        if h.ndim == 3:
+            h = h[..., 0]
+        h = cv2.resize(h, image_rgb.shape[:2][::-1])
+        h8 = np.clip(h * 255, 0, 255).astype(np.uint8)
+        colored = cv2.applyColorMap(h8, cv2.COLORMAP_JET)[:, :, ::-1]
+        return (colored * 0.7 + image_rgb * 0.3).astype(np.uint8)

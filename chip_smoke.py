@@ -17,7 +17,14 @@ frames made from a seed:
 - the throughput path (``ACRApp.run_folder`` over 720p JPEG frames at
   ``val_batch_size`` 8 with ``-t``: the chunk step's forward, OneEuro
   over the chunk, MANO refine, a render per frame), through the fused
-  MANO kernel (``use_pallas_mano="on"``) and the binned kernel.
+  MANO kernel (``use_pallas_mano="on"``) and the binned kernel;
+- the precision paths at full width and 512 px: ``int8_conv2d`` (im2col
+  and ``torch._int_mm``) bit for bit against its plain version at all 338
+  quantized convs, timed beside the bf16 cuDNN conv of each shape; the
+  bf16 image path against the port's bf16 on the CPU and the card's fp32;
+  the W8A8 modes calibrated at load on the committed frames, held to the
+  int8 output-space budget; folder mode at fp32 b8, bf16 b8 and
+  bf16+int8 b16; and one image-mode frame with every auxiliary view.
 It checks them against the port's own CPU run, and times the steps, the
 loop, the chunk step, folder mode and the kernels: each kernel by CUDA
 events around back-to-back calls (``ms``) and alone on the device, as
@@ -1405,6 +1412,353 @@ def phase_times_throughput(card, weights, frames_dir, app):
     return {k: v[0] for k, v in times.items()}, device
 
 
+# ---- the precision paths (bf16, W8A8 int8) and the auxiliary views ----
+# the budget of tests/test_quant.py:160-197: mean per-vertex displacement
+# of an int8 run against the same run in float, over the hand's bbox
+# diagonal
+INT8_BUDGET = 0.01
+# bf16 against the port's bf16 on the CPU and against the card's fp32:
+# verts max abs err (m). Measured 2.3e-7 and 4.8e-5 (the fp32 run picked
+# another centre on a near-tie) on an H100 80GB HBM3 at 700 W
+BF16_VERTS_TOL = {"cpu": 1e-3, "fp32": 1e-3}
+CHUNK_INT8 = 16               # val_batch_size of the bf16+int8 throughput run
+AUX_ITEMS = ("org_img", "pj2d", "centermap", "j3d")
+
+
+def _launch_counts():
+    from acr_tpu_torch.ops import mano_kernel as mk
+    from acr_tpu_torch.viz import raster_cuda as rc
+    return {**rc.LAUNCHES, **mk.LAUNCHES}
+
+
+def _reset_launch_counts():
+    from acr_tpu_torch.ops import mano_kernel as mk
+    from acr_tpu_torch.viz import raster_cuda as rc
+    rc.reset_launch_counts()
+    mk.reset_launch_counts()
+
+
+def phase_int8_conv(card):
+    """int8_conv2d against its plain version, bit for bit, at every
+    quantized conv of the 512 px net at b1 (collected by forward
+    pre-hooks during one forward of the int8 network, calibrated at load
+    on the committed frames), and its time per distinct shape beside the
+    bf16 cuDNN convolution of the same shape (the library comparison:
+    JAX's int8 convolution is an XLA op, not a Pallas kernel)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from acr_tpu_torch.config import Config
+    from acr_tpu_torch.ops import quant as tq
+    from acr_tpu_torch.pipeline.infer import ACRPipeline
+    t0 = time.perf_counter()
+    pipe = ACRPipeline(Config(input_size=SIZE, configs_yml="",
+                              quantize="int8"),
+                       params=_weights(CAM_SCALE["near"]), device="cuda")
+    sites = []
+
+    def grab(mod, args):
+        sites.append((mod.quantize(args[0]), mod.kernel_q, mod.stride,
+                      mod.pad))
+    hooks = [m.register_forward_pre_hook(grab) for m in pipe.net.modules()
+             if isinstance(m, tq.QuantConv)]
+    image = (np.random.RandomState(0).rand(1, SIZE, SIZE, 3) * 255).astype(
+        np.uint8)
+    with torch.no_grad():
+        pipe.net(torch.as_tensor(image).cuda())
+    for h in hooks:
+        h.remove()
+    shapes = {}
+    for xq, k, s, p in sites:
+        got = tq.int8_conv2d(xq, k, s, p)
+        if not torch.equal(got, tq.int8_conv2d_plain(xq, k, s, p)):
+            raise AssertionError(f"int8_conv2d differs from its plain "
+                                 f"version at {tuple(xq.shape)} x "
+                                 f"{tuple(k.shape)}, stride {s}")
+        key = (tuple(xq.shape), tuple(k.shape), s, p)
+        shapes.setdefault(key, [0, xq, k])[0] += 1
+    say("int8", f"int8_conv2d vs plain (float64 conv of the integers) at "
+        f"all {len(sites)} quantized convs of the {SIZE} px net, b1: int32 "
+        f"equal bit for bit ({len(shapes)} distinct shapes)")
+    if len(sites) != 338:
+        raise AssertionError(f"{len(sites)} quantized convs, want 338")
+    total = {"int8": 0.0, "bf16": 0.0}
+    rows = []
+    for (xs, ks, s, p), (n, xq, k) in sorted(shapes.items(),
+                                             key=lambda kv: -kv[1][0]):
+        xb, kb = xq.bfloat16(), k.bfloat16()
+        t_i = cuda_ms(lambda: tq.int8_conv2d(xq, k, s, p), iters=20, reps=3)[0]
+        t_b = cuda_ms(lambda: F.conv2d(xb, kb, stride=s, padding=p),
+                      iters=20, reps=3)[0]
+        total["int8"] += n * t_i
+        total["bf16"] += n * t_b
+        rows.append(f"{xs[1]}x{xs[2]}x{xs[3]}->{ks[0]} k{ks[2]} s{s} "
+                    f"(x{n}): {t_i:.4f} / {t_b:.4f}")
+    say("int8", "int8_conv2d / bf16 cuDNN conv of the same shape, ms per "
+        "call (CUDA events, median of 3 windows of 20), per distinct shape "
+        "[Ci x H x W -> Co, kernel, stride, sites]: " + "; ".join(rows)
+        + f" [{card}]")
+    say("int8", f"summed over the {len(sites)} sites: int8_conv2d "
+        f"{total['int8']:.3f} ms, bf16 cuDNN {total['bf16']:.3f} ms "
+        f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    return total
+
+
+def _budget(ref, out):
+    """(mean per-vertex displacement over the bbox diagonal, flipped
+    detection flags) of ``out`` against ``ref`` (tests/test_quant.py)."""
+    import numpy as np
+    fv = np.asarray(ref["verts"], np.float64)
+    qv = np.asarray(out["verts"], np.float64)
+    disp = np.linalg.norm(qv - fv, axis=-1)
+    diag = np.linalg.norm(fv.max(-2) - fv.min(-2), axis=-1)
+    rel = disp / np.maximum(diag[..., None], 1e-9)
+    flips = int((np.asarray(out["detection_flag"])
+                 != np.asarray(ref["detection_flag"])).sum())
+    return float(rel.mean()), float(rel.max()), flips
+
+
+def _image_run(app, frames, tag):
+    """Every frame through ACRApp.process_frame (device_step without cv2),
+    the launch counts zeroed just before and read just after; returns the
+    host outputs and the launches."""
+    from acr_tpu_torch.pipeline.preprocess import img_preprocess
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    outs = []
+    _reset_launch_counts()
+    for i, frame in enumerate(frames):
+        if has_cv2:
+            app.process_frame(frame, f"{tag}_{i}.jpg")
+            outs.append(app.last_output)
+        else:
+            outs.append(app.device_step(img_preprocess(frame, None, SIZE)))
+    return outs, {k: v for k, v in _launch_counts().items() if v}
+
+
+def _check_image_outs(outs, launches, what):
+    import numpy as np
+    for out in outs:
+        for k in ("verts", "j3d", "pj2d", "cam_trans", "_rgba"):
+            if not np.isfinite(out[k]).all():
+                raise AssertionError(f"{what}: non-finite {k}")
+        if out["verts"].shape != (1, 2, 778, 3) or not out["detection_flag"].all():
+            raise AssertionError(f"{what}: output shape or a hand missed")
+        if not out["_rgba"][3].any():
+            raise AssertionError(f"{what}: the render drew nothing")
+    if launches.get("raster_binned", 0) != len(outs) or set(launches) != {
+            "raster_binned"}:
+        raise AssertionError(f"{what}: launches {launches}, want one "
+                             "raster_binned per frame")
+
+
+def phase_bf16(card, apps, frames, out_dir):
+    """The bf16 image path at b1, 512 px, "near" weights: ACRApp over the
+    main path's frames (launch counts zeroed just before, read just
+    after); against the port's bf16 on the CPU and against the card's own
+    fp32 (the main path's app): the same detection flags and verts within
+    BF16_VERTS_TOL; the b1 device step and the device_step wall beside
+    fp32's, in turns (fp32, bf16, bf16, fp32)."""
+    import numpy as np
+    import torch
+    from acr_tpu_torch.config import Config
+    from acr_tpu_torch.pipeline.app import ACRApp
+    from acr_tpu_torch.pipeline.infer import ACRPipeline
+    from acr_tpu_torch.pipeline.preprocess import img_preprocess
+    t0 = time.perf_counter()
+    cfg = Config(input_size=SIZE, render_size=SIZE, configs_yml="",
+                 centermap_conf_thresh=-1e9, output_dir=out_dir,
+                 model_precision="bf16")
+    weights = _weights(CAM_SCALE["near"])
+    app = ACRApp(cfg, params=weights, device="cuda")
+    outs, launches = _image_run(app, frames, "bf16")
+    _check_image_outs(outs, launches, "bf16 image path")
+    fp32 = apps["near"]
+    meta = img_preprocess(frames[0], None, SIZE)
+    cpu = ACRPipeline(cfg, params=weights, device="cpu")(meta["image"],
+                                                         meta["offsets"])
+    ref = {"cpu": {k: v.numpy() for k, v in cpu.items()},
+           "fp32": fp32.device_step(meta)}
+    got = app.device_step(meta)
+    errs = {}
+    for name, want in ref.items():
+        same_flags = np.array_equal(got["detection_flag"],
+                                    want["detection_flag"])
+        errs[name] = float(np.abs(got["verts"] - want["verts"]).max())
+        same_centers = np.array_equal(got["centers"], want["centers"])
+        say("bf16", f"bf16 on the card vs {name}: detection flags equal "
+            f"{same_flags}, centres equal {same_centers}, verts max abs err "
+            f"{errs[name]:.3e} m (tol {BF16_VERTS_TOL[name]:g}), betas max "
+            f"abs err {float(np.abs(got['betas'] - want['betas']).max()):.3e}")
+        if not same_flags or errs[name] > BF16_VERTS_TOL[name]:
+            raise AssertionError(f"bf16 vs {name}")
+    image = torch.as_tensor(meta["image"]).cuda()
+    offsets = torch.as_tensor(meta["offsets"]).cuda()
+    times = {}
+    for name in ("fp32", "bf16", "bf16", "fp32"):
+        a = app if name == "bf16" else fp32
+
+        def step():
+            with torch.no_grad():
+                out = a.pipeline(image, offsets)
+                a.visualizer.render_rgba_device(out)
+        t = cuda_ms(step, iters=10, reps=3)[0]
+        walls = []
+        for i in range(13):
+            w0 = time.perf_counter()
+            a.device_step(meta)
+            if i >= 3:
+                walls.append((time.perf_counter() - w0) * 1e3)
+        times.setdefault(name, []).append((t, sorted(walls)[5]))
+    say("bf16", f"b1 {SIZE} px device step (forward + render, CUDA events, "
+        "median of 3 windows of 10) and ACRApp.device_step host wall (median "
+        "of 10), runs in the order fp32, bf16, bf16, fp32: " + "; ".join(
+            f"{k} " + ", ".join(f"{s:.3f} / {w:.3f} ms" for s, w in v)
+            for k, v in times.items()) + f"; launches {launches} "
+        f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    return launches, times
+
+
+def phase_int8(card, frames, out_dir):
+    """W8A8 at 512 px, calibrated at load on the committed frames: the
+    image path in bf16+int8 (as bench.py serves it) over the main path's
+    frames, the launch counts zeroed just before and read just after; the
+    output-space budget of int8 and int8_pc in bf16 and of int8 in fp32
+    against the same precision in float, on pipelines at the default 0.35
+    threshold (so the flags are real); int8_r and int4w once each in bf16,
+    finite, their budget printed, not asserted."""
+    import numpy as np
+    from acr_tpu_torch.config import Config
+    from acr_tpu_torch.pipeline.app import ACRApp
+    from acr_tpu_torch.pipeline.infer import ACRPipeline
+    from acr_tpu_torch.pipeline.preprocess import img_preprocess
+    t0 = time.perf_counter()
+    weights = _weights(CAM_SCALE["near"])
+    base = dict(input_size=SIZE, render_size=SIZE, configs_yml="",
+                output_dir=out_dir)
+    app = ACRApp(Config(model_precision="bf16", quantize="int8",
+                        centermap_conf_thresh=-1e9, **base),
+                 params=weights, device="cuda")
+    outs, launches = _image_run(app, frames, "int8")
+    _check_image_outs(outs, launches, "bf16+int8 image path")
+    del app
+    metas = [img_preprocess(f, None, SIZE) for f in frames]
+    run = lambda pipe: [{k: v.cpu().numpy() for k, v in pipe(
+        m["image"], m["offsets"]).items()} for m in metas]
+    refs = {p: run(ACRPipeline(Config(model_precision=p, **base),
+                               params=weights, device="cuda"))
+            for p in ("fp32", "bf16")}
+    budgets = {}
+    for prec, mode in (("bf16", "int8"), ("bf16", "int8_pc"),
+                       ("fp32", "int8"), ("bf16", "int8_r"),
+                       ("bf16", "int4w")):
+        name = f"{prec}+{mode}"
+        asserted = mode in ("int8", "int8_pc")
+        outs = run(ACRPipeline(Config(model_precision=prec, quantize=mode,
+                                      **base), params=weights, device="cuda"))
+        rels, maxes, flips = [], [], 0
+        for out, ref in zip(outs, refs[prec]):
+            for k in ("verts", "j3d", "cam_trans", "poses", "betas"):
+                if not np.isfinite(out[k]).all():
+                    raise AssertionError(f"{name}: non-finite {k}")
+            rel, mx, flip = _budget(ref, out)
+            rels.append(rel)
+            maxes.append(mx)
+            flips += flip
+        n_det = sum(int(r["detection_flag"].sum()) for r in refs[prec])
+        budgets[name] = (float(np.mean(rels)), max(maxes), flips)
+        say("int8", f"{name}, calibrated at load on the committed frames: "
+            f"mean per-vertex displacement {budgets[name][0] * 100:.4f} % of "
+            f"the bbox diagonal (max {budgets[name][1] * 100:.4f} %), {flips} "
+            f"flipped flags of {2 * len(metas)} ({n_det} set in float) over "
+            f"{len(metas)} frames against {prec} float"
+            + (f" (budget < {INT8_BUDGET * 100:g} %, 0 flips)" if asserted
+               else " (printed, not asserted)"))
+        if asserted and (budgets[name][0] >= INT8_BUDGET or flips):
+            raise AssertionError(f"{name} outside the int8 budget")
+    say("int8", f"bf16+int8 image path launches {launches} "
+        f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    return launches, budgets
+
+
+def phase_precision_throughput(card, weights, frames_dir, out_dir):
+    """The throughput path (folder mode, -t, use_pallas_mano "on", render
+    512) at fp32 b8, bf16 b8 and bf16+int8 b16, in turns: run_folder with
+    the launch counts zeroed just before and read just after, then the
+    chunk step (CUDA events), its host syncs and folder-mode frames/s over
+    warmed chunks."""
+    import numpy as np
+    from acr_tpu_torch.io.writers import collect_image_list
+    from acr_tpu_torch.pipeline.app import ACRApp
+    from acr_tpu_torch.utils.meters import StageTimer
+    t0 = time.perf_counter()
+    files = collect_image_list(frames_dir)
+    runs = {}
+    for prec, mode, bs in (("fp32", "none", CHUNK), ("bf16", "none", CHUNK),
+                           ("bf16", "int8", CHUNK_INT8)):
+        name = f"{prec}{'+' + mode if mode != 'none' else ''} b{bs}"
+        d = os.path.join(out_dir, name.replace(" ", "_").replace("+", "_"))
+        app = ACRApp(_throughput_cfg(frames_dir, d + "/", model_precision=prec,
+                                     quantize=mode, val_batch_size=bs),
+                     params=weights, device="cuda")
+        _reset_launch_counts()
+        results = app.run_folder()
+        launches = {k: v for k, v in _launch_counts().items() if v}
+        n_chunks = -(-N_THROUGHPUT // bs)
+        if len(results) != N_THROUGHPUT or any(
+                len(h) != 2 for h in results.values()):
+            raise AssertionError(f"{name}: results")
+        for key in ("verts", "j3d", "pj2d", "poses", "_rgba"):
+            if not np.isfinite(app.last_output[key]).all():
+                raise AssertionError(f"{name}: non-finite {key}")
+        if (launches.get("mano_fused") != 4 * n_chunks
+                or launches.get("raster_binned", 0) < N_THROUGHPUT):
+            raise AssertionError(f"{name}: launches {launches}")
+        image, offsets = _chunk_inputs(frames_dir, bs)
+        step = lambda: app.chunk_step(image, offsets)
+        t = cuda_ms(step, iters=3, reps=3, warmup=1)
+        n_syncs, _ = count_syncs(step)
+        app.timer = StageTimer()
+        w0 = time.perf_counter()
+        app._run_batched(files)
+        fps = len(files) / (time.perf_counter() - w0)
+        runs[name] = (t[0], t[0] / bs, fps, n_syncs, launches)
+        say("precision_throughput", f"{name}: chunk step {ms_text(t)} "
+            f"({t[0] / bs:.3f} ms per frame), {n_syncs} host syncs per step; "
+            f"folder mode {fps:.3f} frames/s over {len(files)} warmed "
+            f"{FRAME_HW[0]}x{FRAME_HW[1]} frames; run_folder launches "
+            f"{launches} [{card}]")
+        del app
+    say("precision_throughput", f"({time.perf_counter() - t0:.1f} s)")
+    return runs
+
+
+def phase_aux(weights, out_dir):
+    """One image-mode frame with show_items mesh, org_img, pj2d,
+    centermap, j3d: every view written under JAX's _aux_path name."""
+    import numpy as np
+    from acr_tpu_torch.config import Config
+    from acr_tpu_torch.pipeline.app import ACRApp
+    if importlib.util.find_spec("cv2") is None:
+        raise AssertionError("the aux views need cv2")
+    cfg = Config(input_size=SIZE, render_size=SIZE, configs_yml="",
+                 centermap_conf_thresh=-1e9, output_dir=out_dir,
+                 show_items=("mesh",) + AUX_ITEMS)
+    app = ACRApp(cfg, params=weights, device="cuda")
+    frame = (np.random.RandomState(2).rand(*FRAME_HW, 3) * 255).astype(
+        np.uint8)
+    outs, launches = _image_run(app, [frame], "aux")
+    _check_image_outs(outs, launches, "aux frame")
+    written = sorted(os.listdir(out_dir))
+    want = sorted(["aux_0.jpg"] + [f"aux_0_{i}.jpg" for i in AUX_ITEMS])
+    maps = outs[0]["l_center_map"]
+    say("aux", f"one {FRAME_HW[0]}x{FRAME_HW[1]} frame with show_items "
+        f"{cfg.show_items}: wrote {written}; centre maps {maps.dtype} "
+        f"{maps.shape}; launches {launches}")
+    if written != want or maps.dtype != np.float32:
+        raise AssertionError(f"aux files {written}, want {want}")
+    return launches
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "acr_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -1436,6 +1790,16 @@ def main():
     phase_device_vs_cpu_chunk(weights, frames_dir,
                               os.path.join(out_dir, "chunk") + "/")
     ttimes, tdevice = phase_times_throughput(card, weights, frames_dir, t_app)
+    t_new = time.perf_counter()
+    phase_int8_conv(card)
+    bf16_launches, _ = phase_bf16(card, apps, frames,
+                                  os.path.join(out_dir, "bf16"))
+    int8_launches, _ = phase_int8(card, frames, os.path.join(out_dir, "int8"))
+    p_runs = phase_precision_throughput(card, weights, frames_dir,
+                                        os.path.join(out_dir, "precision"))
+    aux_launches = phase_aux(weights, os.path.join(out_dir, "aux"))
+    say("precision", f"the bf16, int8 and aux phases took "
+        f"{time.perf_counter() - t_new:.1f} s")
     device["mano_fused"] = tdevice[f"mano_fused_{CHUNK}"]
     # B4 at the throughput path's shape: 8 hands per launch
     bounds["mano_fused"] = mano_bound(CHUNK)
@@ -1462,6 +1826,14 @@ def main():
                    launches["raster_binned"],
                    max(kin["binned_err"], errs["raster_binned"]),
                    times["raster_binned"], times["raster_binned_plain"], None)
+    # the launches on the bf16, int8 and aux paths, each counted from 0
+    binned["paths"] = {
+        "bf16 image b1": bf16_launches["raster_binned"],
+        "bf16+int8 image b1": int8_launches["raster_binned"],
+        "aux views image b1": aux_launches["raster_binned"],
+        **{f"folder {k}": v[4]["raster_binned"] for k, v in p_runs.items()}}
+    mano["paths"] = {f"folder {k}": v[4]["mano_fused"]
+                     for k, v in p_runs.items()}
     binned["scenes"] = {
         name: {"ms": r["ms"][0], "device_ms": r["device_ms"],
                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],

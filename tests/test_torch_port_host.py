@@ -1,5 +1,6 @@
 """The port's host-side copies equal the originals, its unported options
-raise, and neither an acr_tpu_torch module nor chip_smoke.py imports JAX
+raise (an orbax checkpoint directory among them, C5), the options it
+runs pass ``check_slice``, and neither an acr_tpu_torch module nor chip_smoke.py imports JAX
 or the JAX package."""
 
 import dataclasses
@@ -114,13 +115,11 @@ def test_meters_and_capture_copies_equal(module_pair, names):
 
 @pytest.mark.parametrize("override,item", [
     (dict(jit_translation_solve=False), "A15"),
-    (dict(model_precision="bf16"), "A6"),
-    (dict(quantize="int8"), "A13"),
     (dict(data_parallel=2), "A14"),
     (dict(renderer="native"), "A15"),
-    (dict(show_items=("mesh", "pj2d")), "A10"),
-    (dict(demo_mode="folder", val_batch_size=2, model_precision="bf16"),
-     "A6"),
+    (dict(profile_dir="trace"), "A15"),
+    (dict(demo_mode="folder", val_batch_size=2, data_parallel=4,
+          model_precision="bf16"), "A14"),
 ])
 def test_unported_options_raise(override, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -144,11 +143,37 @@ def test_throughput_options_accepted(override):
     check_slice(tconfig.Config(**override))
 
 
+@pytest.mark.parametrize("override", [
+    dict(model_precision="bf16"),
+    dict(quantize="int8"),
+    dict(quantize="int8_pc", model_precision="bf16"),
+    dict(quantize="int8_r"),
+    dict(quantize="int4w", model_precision="bf16"),
+    dict(show_items=("mesh", "org_img", "pj2d", "centermap", "j3d")),
+    dict(demo_mode="folder", val_batch_size=2, model_precision="bf16",
+         quantize="int8", show_items=("mesh", "centermap")),
+    dict(demo_mode="webcam", temporal_optimization=True,
+         model_precision="bf16", quantize="int8"),
+])
+def test_precision_and_aux_options_accepted(override):
+    # bf16 (A6), the four int8 modes (A13) and the aux views (A10) run now
+    check_slice(tconfig.Config(**override))
+
+
+def test_orbax_directory_raises_c5(tmp_path):
+    from acr_tpu_torch.io.params import load_params
+    from acr_tpu_torch.pipeline.infer import ACRPipeline
+    with pytest.raises(NotImplementedError, match="C5"):
+        load_params(str(tmp_path))
+    with pytest.raises(NotImplementedError, match="C5"):
+        ACRPipeline(tconfig.Config(model_path=str(tmp_path)), device="cpu")
+
+
 def test_cli_rejects_unported_mode_before_loading():
     from acr_tpu_torch.cli import main
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="A14"):
         main(["--demo_mode", "video", "--val_batch_size", "2",
-              "--model_precision", "bf16",
+              "--data_parallel", "2",
               "--model_path", "/nonexistent.npz", "--device", "cpu"])
 
 
@@ -167,10 +192,11 @@ def test_no_module_imports_jax():
         "new = {'acr_tpu_torch.pipeline.' + m for m in\n"
         "       ('temporal', 'streaming', 'capture')}\n"
         "new |= {'acr_tpu_torch.utils.meters', 'acr_tpu_torch.utils.device',\n"
-        "        'acr_tpu_torch.ops.mano_kernel', 'acr_tpu_torch.ops.cuda_lib'}\n"
+        "        'acr_tpu_torch.ops.mano_kernel', 'acr_tpu_torch.ops.cuda_lib',\n"
+        "        'acr_tpu_torch.ops.quant', 'acr_tpu_torch.viz.skeleton3d'}\n"
         "assert new <= set(names), names\n"
         "print(len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 34
+    assert int(proc.stdout.strip()) >= 36
