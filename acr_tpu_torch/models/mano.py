@@ -44,6 +44,23 @@ class ManoModel(NamedTuple):
     weights: torch.Tensor       # (778, 16)
     hands_mean: torch.Tensor    # (45,)
     tips: torch.Tensor          # (5,) int64 fingertip vertex ids
+    j_basis: torch.Tensor       # (11, 16, 3): rest joints = [1|betas] @ j_basis
+
+
+def rest_joint_basis(j_regressor: np.ndarray, v_template: np.ndarray,
+                     shapedirs: np.ndarray) -> np.ndarray:
+    """The rest joints as a function of betas, j = J_reg @ (v_t +
+    shapedirs @ betas) = [1|betas] @ j_basis: (11, 16, 3) float32.
+
+    Summed on the host by numpy in float32 with the JAX package's own
+    expressions and C-contiguous operands (acr_tpu/ops/mano_kernel.py:
+    73-77), so it equals JAX's bit for bit; torch's order of the 778-term
+    sums follows the host's BLAS and threads (ROADMAP C6)."""
+    jr = np.ascontiguousarray(j_regressor, np.float32)
+    j0 = jr @ np.ascontiguousarray(v_template, np.float32)             # (16, 3)
+    jsh = np.einsum("jv,vct->tjc", jr,
+                    np.ascontiguousarray(shapedirs, np.float32))       # (10, 16, 3)
+    return np.concatenate([j0[None], jsh], axis=0)
 
 
 def load_mano_model(mano_dir: str, side: str, device="cuda",
@@ -60,7 +77,10 @@ def load_mano_model(mano_dir: str, side: str, device="cuda",
             v_template=t("v_template"), shapedirs=t("shapedirs"),
             posedirs=t("posedirs"), j_regressor=t("J_regressor"),
             weights=t("weights"), hands_mean=t("hands_mean"),
-            tips=torch.as_tensor(tips, dtype=torch.long, device=device))
+            tips=torch.as_tensor(tips, dtype=torch.long, device=device),
+            j_basis=torch.as_tensor(rest_joint_basis(
+                d["J_regressor"], d["v_template"], d["shapedirs"]),
+                dtype=dtype, device=device))
         faces = np.asarray(d["faces"], np.int32)
     return model, faces
 
@@ -86,6 +106,14 @@ def pose_rotations(hands_mean: torch.Tensor, poses: torch.Tensor,
     rotmats = axis_angle_to_rotmat(full_aa)                  # (B, 16, 3, 3)
     eye = torch.eye(3, dtype=rotmats.dtype, device=rotmats.device)
     return rotmats, (rotmats[:, 1:] - eye).reshape(B, 135)
+
+
+def rest_joints(j_basis: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
+    """(B, 10) betas -> (B, 16, 3) rest joints, [1|betas] @ j_basis."""
+    ones = torch.ones((betas.shape[0], 1), dtype=betas.dtype,
+                      device=betas.device)
+    return torch.einsum("bt,tjc->bjc", torch.cat([ones, betas], dim=1),
+                        j_basis)
 
 
 def skinning_transforms(rotmats: torch.Tensor, j_rest: torch.Tensor):
@@ -139,7 +167,9 @@ def mano_forward(model: ManoModel, poses: torch.Tensor, betas: torch.Tensor,
     rotmats, pose_map = pose_rotations(model.hands_mean, poses, add_mean)
     v_shaped = (torch.einsum("vct,bt->bvc", model.shapedirs, betas)
                 + model.v_template[None])
-    j_rest = torch.einsum("jv,bvc->bjc", model.j_regressor, v_shaped)
+    # the rest joints from the basis the fused path reads too, so that
+    # both paths place every joint alike (ROADMAP C6)
+    j_rest = rest_joints(model.j_basis, betas)
     v_posed = v_shaped + torch.einsum("vcp,bp->bvc", model.posedirs, pose_map)
     g_all, g_skin = skinning_transforms(rotmats, j_rest)
 

@@ -38,6 +38,7 @@ from acr_tpu_torch.models.mano import (
     ManoModel,
     joints_and_align,
     pose_rotations,
+    rest_joints,
     skinning_transforms,
 )
 from acr_tpu_torch.ops import cuda_lib
@@ -94,12 +95,9 @@ def build_kernel_data(model: ManoModel) -> ManoKernelData:
     basis = torch.cat([model.v_template.T[None],
                        model.shapedirs.permute(2, 1, 0),
                        model.posedirs.permute(2, 1, 0)]).contiguous()
-    # rest joints as a function of betas: j = J_reg @ (v_t + shapedirs @ betas)
-    j0 = model.j_regressor @ model.v_template                       # (16, 3)
-    jsh = torch.einsum("jv,vct->tjc", model.j_regressor, model.shapedirs)
     return ManoKernelData(
         basis=basis, weights_t=model.weights.T.contiguous(),
-        j_basis=torch.cat([j0[None], jsh]).contiguous(),
+        j_basis=model.j_basis,
         hands_mean=model.hands_mean, tips=model.tips)
 
 
@@ -161,10 +159,9 @@ def blend_skin_operands(data: ManoKernelData, poses: torch.Tensor,
     joints' world transforms (B, 16, 4, 4)."""
     b = poses.shape[0]
     rotmats, pose_map = pose_rotations(data.hands_mean, poses, add_mean)
+    g_all, g_skin = skinning_transforms(rotmats,
+                                        rest_joints(data.j_basis, betas))
     ones = torch.ones((b, 1), dtype=betas.dtype, device=betas.device)
-    j_rest = torch.einsum("bt,tjc->bjc", torch.cat([ones, betas], dim=1),
-                          data.j_basis)
-    g_all, g_skin = skinning_transforms(rotmats, j_rest)
     coef = torch.cat([ones, betas, pose_map], dim=1)
     g_rows = g_skin[:, :, :3, :].permute(0, 2, 3, 1).reshape(b * 12, 16)
     return coef, g_rows.contiguous(), g_all

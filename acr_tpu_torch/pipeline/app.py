@@ -25,6 +25,26 @@ beside each rendered frame in image, folder and video mode, as
 ``<stem>_<item><ext>`` (``_aux_path``); ``centermap`` has the forward
 return its centre maps in fp32 (``return_maps``), the chunk step's
 included. The webcam stream shows the mesh only, as in JAX.
+
+The host paths of the native library (``io.native``): with
+``renderer='native'`` the frames are drawn on the host after the
+readback, and with ``jit_translation_solve=False`` the host RANSAC solve
+replaces ``cam_trans`` after it. The chunk step then runs without its
+render (JAX's per-stage path, whose reason is logged) and the frames
+are rendered one by one after the solve. The app raises at construction
+when either was asked for and the library cannot be built or loaded.
+
+Under ``data_parallel > 1`` (``parallel.mesh``) the chunk step runs
+sharded when its frames are independent: each replica runs the forward
+and the per-frame render of its shard, the outputs are gathered and the
+capacity probe is reduced over the whole chunk. With ``-t`` (the OneEuro
+filter runs in frame order) or a ``val_batch_size`` that does not divide
+over the mesh it takes JAX's per-stage path, with the reason in
+``_fused_bypass_reason``: the forward runs sharded, then OneEuro, the
+refine and the render run on the lead replica, where the filter state
+lives. The stream step's forward is sharded the same way (its one frame
+padded over the mesh). Every process holds every output; only rank 0
+writes files.
 """
 
 from __future__ import annotations
@@ -44,7 +64,7 @@ from acr_tpu_torch.io.writers import (
     save_video,
     split_frame,
 )
-from acr_tpu_torch.pipeline.infer import ACRPipeline
+from acr_tpu_torch.pipeline.infer import ACRPipeline, forward_fn
 from acr_tpu_torch.pipeline.preprocess import img_preprocess
 from acr_tpu_torch.pipeline.results import reorganize_results
 from acr_tpu_torch.pipeline.temporal import (
@@ -76,18 +96,51 @@ def probe_reduce(per_frame: torch.Tensor) -> torch.Tensor:
 class ACRApp:
     """Owns the pipeline, the visualizer, the OneEuro state and the
     output directory. ``device`` is ``cuda`` unless the caller asks for
-    the CPU; without a card a CUDA device raises."""
+    the CPU; without a card a CUDA device raises. ``devices`` names the
+    replica devices under ``data_parallel > 1`` (``ACRPipeline``)."""
 
     def __init__(self, cfg: Config, params=None, device="cuda",
-                 merge_params=None):
+                 merge_params=None, devices=None):
         self.cfg = cfg
+        if cfg.renderer == "native" or not cfg.jit_translation_solve:
+            from acr_tpu_torch.io import native
+            native.library()            # raises when it cannot be built
         self.pipeline = ACRPipeline(cfg, params=params, device=device,
-                                    merge_params=merge_params)
+                                    merge_params=merge_params,
+                                    devices=devices)
+        mesh = self.pipeline.mesh
         self.visualizer = None
+        self._replica_viz = {}
         if cfg.save_visualization_on_img and cfg.renderer != "none":
             from acr_tpu_torch.viz.visualizer import Visualizer
             self.visualizer = Visualizer(cfg, self.pipeline.faces,
                                          device=self.pipeline.device)
+            # the per-frame render of each replica's shard, on its device
+            self._replica_viz = {self.pipeline.device: self.visualizer}
+            for rep in self.pipeline.replicas[1:]:
+                if rep.device not in self._replica_viz:
+                    self._replica_viz[rep.device] = Visualizer(
+                        cfg, self.pipeline.faces, device=rep.device)
+        # the chunk step renders on the device unless the frames are drawn
+        # on the host or wait for the host translation solve
+        self._render_in_step = (self.visualizer is not None
+                                and cfg.renderer == "tpu"
+                                and cfg.jit_translation_solve)
+        # why the chunk step does not run sharded under a mesh (JAX's
+        # reasons, acr_tpu/pipeline/app.py:270-279)
+        self._fused_bypass_reason = None
+        if mesh is not None and cfg.temporal_optimization:
+            self._fused_bypass_reason = (
+                "data_parallel with -t: the OneEuro scan is sequential "
+                "across frames")
+        elif mesh is not None and cfg.val_batch_size % mesh.size:
+            self._fused_bypass_reason = (
+                f"val_batch_size={cfg.val_batch_size} does not divide "
+                f"over the {mesh.size}-device mesh")
+        self._sharded_chunk = (mesh is not None
+                               and self._fused_bypass_reason is None)
+        # every process holds every output; one of them writes the files
+        self._writes = mesh is None or mesh.rank == 0
         # the auxiliary views drawn beside each rendered frame
         self.aux_items = [] if self.visualizer is None else \
             [i for i in cfg.show_items if i != "mesh"]
@@ -104,9 +157,10 @@ class ACRApp:
 
     def _issue(self, meta: Dict, probe: bool, return_maps: bool = False
                ) -> Dict[str, torch.Tensor]:
-        """Forward, OneEuro + refine with ``-t``, render and capacity
-        probe, issued on the device; nothing is read back but the banded
-        render's gate. The planar (4, S, S) RGBA rides under ``_rgba``."""
+        """Forward, OneEuro + refine with ``-t``, the device render (with
+        ``renderer='tpu'``) and capacity probe, issued on the device;
+        nothing is read back but the banded render's gate. The planar
+        (4, S, S) RGBA rides under ``_rgba``."""
         with torch.no_grad():
             out = self.pipeline(meta["image"], meta["offsets"],
                                 return_maps=return_maps)
@@ -118,11 +172,24 @@ class ACRApp:
                 out["poses"], out["betas"] = poses[None], betas[None]
                 out.update(self.pipeline.refine(out["poses"], out["betas"],
                                                 out["cam"], meta["offsets"]))
-            if self.visualizer is not None:
+            if self.visualizer is not None and self.cfg.renderer == "tpu":
                 out["_rgba"] = self.visualizer.render_rgba_device(out)
                 if probe:
                     out["_raster_overflow"] = \
                         self.visualizer.overflow_probe_device(out)
+        return out
+
+    def _render_chunk(self, viz, out: Dict[str, torch.Tensor], probe: bool
+                      ) -> Dict[str, torch.Tensor]:
+        """A render per frame of the chunk into ``_rgba`` (B, 4, S, S),
+        and with ``probe`` each frame's capacity probe into
+        ``_probe_frames`` (B, 4)."""
+        frames = range(out["verts"].shape[0])
+        out["_rgba"] = torch.stack([viz.render_rgba_device(out, batch_idx=k)
+                                    for k in frames])
+        if probe:
+            out["_probe_frames"] = torch.stack([
+                viz.overflow_probe_device(out, batch_idx=k) for k in frames])
         return out
 
     def chunk_step(self, image, offsets) -> Dict[str, torch.Tensor]:
@@ -131,31 +198,47 @@ class ACRApp:
         ``_chunk_step``): the forward over the chunk; with ``-t``, OneEuro
         over the chunk's frames in order (the state carried across
         chunks) and the MANO refine on the smoothed poses; a render per
-        frame into ``_rgba`` (B, 4, S, S); with the probe on, the chunk's
-        reduced probe; the centre maps when the ``centermap`` view is
-        asked for. Nothing is read back but the banded render's gates
-        (at 1024 px and above), one per frame."""
-        dev = self.pipeline.device
-        image = torch.as_tensor(image).to(dev)
-        offsets = torch.as_tensor(offsets, dtype=torch.float32).to(dev)
+        frame into ``_rgba`` (B, 4, S, S) unless the frames are drawn on
+        the host or wait for the host solve; with the probe on, the
+        chunk's reduced probe; the centre maps when the ``centermap`` view
+        is asked for. Under a mesh the forward and the render run sharded
+        when the frames are independent (JAX's ``_chunk_step_dp``).
+        Nothing is read back but the banded render's gates (at 1024 px and
+        above), one per frame, and the gather across processes."""
+        render = self._render_in_step
+        probe = render and self.cfg.raster_overflow_every > 0
         with torch.no_grad():
-            out = self.pipeline(image, offsets, return_maps=self._need_maps)
-            if self.cfg.temporal_optimization:
-                self.filter_state, poses, betas = smooth_sequence(
-                    self.filter_state, out["poses"], out["betas"],
-                    out["detection_flag"], self.cfg.smooth_coeff)
-                out["poses"], out["betas"] = poses, betas
-                out.update(self.pipeline.refine(poses, betas, out["cam"],
-                                                offsets))
-            if self.visualizer is not None:
-                frames = range(out["verts"].shape[0])
-                out["_rgba"] = torch.stack([
-                    self.visualizer.render_rgba_device(out, batch_idx=k)
-                    for k in frames])
-                if self.cfg.raster_overflow_every > 0:
-                    out["_raster_overflow"] = probe_reduce(torch.stack([
-                        self.visualizer.overflow_probe_device(out, batch_idx=k)
-                        for k in frames]))
+            if self._sharded_chunk:
+                def shard(rep, img, off):
+                    out = forward_fn(rep.net, rep.mano_l, rep.mano_r, img,
+                                     off, self.cfg,
+                                     return_maps=self._need_maps,
+                                     merge_params=rep.merge_params)
+                    if render:
+                        out = self._render_chunk(
+                            self._replica_viz[rep.device], out, probe)
+                    return out
+                out = self.pipeline.run_sharded(
+                    shard, torch.as_tensor(image),
+                    torch.as_tensor(offsets, dtype=torch.float32))
+            else:
+                dev = self.pipeline.device
+                image = torch.as_tensor(image).to(dev)
+                offsets = torch.as_tensor(offsets, dtype=torch.float32).to(dev)
+                out = self.pipeline(image, offsets,
+                                    return_maps=self._need_maps)
+                if self.cfg.temporal_optimization:
+                    self.filter_state, poses, betas = smooth_sequence(
+                        self.filter_state, out["poses"], out["betas"],
+                        out["detection_flag"], self.cfg.smooth_coeff)
+                    out["poses"], out["betas"] = poses, betas
+                    out.update(self.pipeline.refine(poses, betas, out["cam"],
+                                                    offsets))
+                if render:
+                    out = self._render_chunk(self.visualizer, out, probe)
+            # the probe is reduced over the whole (gathered) chunk
+            if probe:
+                out["_raster_overflow"] = probe_reduce(out.pop("_probe_frames"))
         return out
 
     def device_step(self, meta: Dict) -> Dict[str, np.ndarray]:
@@ -237,11 +320,18 @@ class ACRApp:
             self._emit_frame(bgr_frame, path)
             return {path: []}
 
+        if not self.cfg.jit_translation_solve:
+            self._host_translation(out)
+
         results = reorganize_results(out, [path])
         if self.visualizer is not None:
             with self.timer.stage("render"):
-                rendered = self.visualizer.compose_on_frame(
-                    out["_rgba"], bgr_frame, meta, planar=True)
+                if "_rgba" in out:
+                    rendered = self.visualizer.compose_on_frame(
+                        out["_rgba"], bgr_frame, meta, planar=True)
+                else:
+                    rendered = self.visualizer.render_on_frame(
+                        bgr_frame, out, meta)
             with self.timer.stage("encode"):
                 self._emit_frame(rendered, path)
             if self.aux_items:
@@ -249,6 +339,25 @@ class ACRApp:
         else:
             self._emit_frame(bgr_frame, path)
         return results
+
+    def _host_translation(self, out: Dict[str, np.ndarray]):
+        """Replace the device's LS translation with the native host RANSAC
+        solve per hand (``jit_translation_solve=False``), keeping the
+        device value where the host system is singular."""
+        from acr_tpu_torch.io import native
+        j3d = out["j3d"]
+        pj_px = (out["pj2d"] + 1.0) * (self.cfg.input_size / 2.0)
+        half = self.cfg.input_size / 2.0
+        trans = np.zeros_like(out["cam_trans"])
+        for b in range(j3d.shape[0]):
+            for hand in range(2):
+                try:
+                    trans[b, hand] = native.estimate_translation(
+                        j3d[b, hand], pj_px[b, hand],
+                        focal=float(self.cfg.focal_length), cx=half, cy=half)
+                except ValueError:
+                    trans[b, hand] = out["cam_trans"][b, hand]
+        out["cam_trans"] = trans
 
     def _emit_aux(self, out: Dict, meta: Dict, path: str):
         """Write (or show) one frame's auxiliary views; ``out`` holds the
@@ -263,6 +372,8 @@ class ACRApp:
         return f"{base}_{item}{ext or '.jpg'}"
 
     def _emit_frame(self, bgr_frame: np.ndarray, path: str):
+        if not self._writes:
+            return
         if self.cfg.demo_mode == "webcam" or not self.cfg.save_visualization_on_img:
             # webcam mode displays every frame like the reference
             # (acr/main.py:110-111); a host without a display warns once
@@ -308,7 +419,7 @@ class ACRApp:
         if image is None:
             raise ValueError(f"could not decode image: {imgpath}")
         results = self.process_frame(image, imgpath)
-        if self.cfg.save_dict_results:
+        if self.cfg.save_dict_results and self._writes:
             save_results(imgpath, self.output_dir, results)
         return results
 
@@ -348,11 +459,12 @@ class ACRApp:
             log.info("per-stage latency: %s",
                      {k: f"{v['avg_ms']:.1f}ms"
                       for k, v in self.timer.report().items()})
-        if self.cfg.save_visualization_on_img and self.visualizer is not None:
+        if (self.cfg.save_visualization_on_img and self.visualizer is not None
+                and self._writes):
             save_video(self.output_dir,
                        os.path.join(self.output_dir,
                                     os.path.basename(image_folder) + "_output"))
-        if self.cfg.save_dict_results:
+        if self.cfg.save_dict_results and self._writes:
             save_results(image_folder, self.output_dir, results)
         return results
 
@@ -375,6 +487,16 @@ class ACRApp:
 
         import cv2
         bs = self.cfg.val_batch_size
+        # JAX's per-stage path, and why (acr_tpu/pipeline/app.py:612-626)
+        why = (self._fused_bypass_reason
+               or ("host translation solve"
+                   if not self.cfg.jit_translation_solve else None)
+               or (f"renderer={self.cfg.renderer}"
+                   if self.visualizer is not None
+                   and self.cfg.renderer != "tpu" else None))
+        if why:
+            log.info("fused chunk step bypassed (%s); using the per-stage "
+                     "path", why)
 
         def read_frame(path):
             frame = cv2.imread(path)
@@ -426,22 +548,29 @@ class ACRApp:
                 self._consume_overflow_probe(o, n_frames=len(batch_paths))
             keep = bs - pad
             chunk = {k: v[:keep] for k, v in o.items()}
+            if not self.cfg.jit_translation_solve:
+                self._host_translation(chunk)
             self.last_output = chunk            # the chunk's host outputs
             rgba = chunk.get("_rgba")
             results.update(reorganize_results(chunk, batch_paths))
 
             for k, (path, frame, meta) in enumerate(
                     zip(batch_paths, frames, metas)):
-                if rgba is None or not chunk["detection_flag"][k].any():
+                if (self.visualizer is None
+                        or not chunk["detection_flag"][k].any()):
                     self._emit_frame(frame, path)
                     continue
+                one = {key: v[k:k + 1] for key, v in chunk.items()}
                 with self.timer.stage("render"):
-                    rendered = self.visualizer.compose_on_frame(
-                        rgba[k], frame, meta, planar=True)
+                    if rgba is not None:
+                        rendered = self.visualizer.compose_on_frame(
+                            rgba[k], frame, meta, planar=True)
+                    else:
+                        rendered = self.visualizer.render_on_frame(
+                            frame, one, meta)
                 self._emit_frame(rendered, path)
                 if self.aux_items:
-                    self._emit_aux({key: v[k:k + 1] for key, v in
-                                    chunk.items()}, meta, path)
+                    self._emit_aux(one, meta, path)
         return results
 
     def run_webcam(self):

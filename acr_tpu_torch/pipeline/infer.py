@@ -19,12 +19,20 @@ at load; the maps stay bf16 and the parser casts what it samples, so
 MANO and everything after it run in fp32. ``quantize`` keeps the float
 weights, calibrates the int8 activation scales at load on the committed
 frames (``ops.quant``) and serves the W8A8 network in the compute dtype.
+
+``data_parallel > 1`` keeps one copy of the network and the MANO assets
+per local replica of the mesh (``parallel.mesh``), made once at load;
+a call pads the batch to a multiple of the global replica count, runs
+each of this process's shards on its replica and gathers the outputs on
+the lead replica (from every process, on every process).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import logging
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,6 +51,13 @@ from acr_tpu_torch.ops.quant import (
     committed_calibration_frames,
     quantize_for_net,
 )
+from acr_tpu_torch.parallel.mesh import (
+    gather_outputs,
+    init_distributed,
+    make_mesh,
+    pad_batch,
+    split_batch,
+)
 from acr_tpu_torch.parser.parse import parse_outputs
 from acr_tpu_torch.pipeline.project import (
     estimate_translation_ls,
@@ -55,22 +70,11 @@ log = logging.getLogger("acr_tpu_torch")
 
 
 def check_slice(cfg: Config) -> None:
-    """Raise NotImplementedError for every option value the port does
-    not run yet, naming its ROADMAP item. The TPU layout rewrites
-    (``s2d_*``, ``merged_heads``) are not options here: the port builds
-    the canonical network whatever they say. An orbax ``model_path``
-    raises in ``io.params.load_params`` (C5)."""
-    unported = [
-        (cfg.data_parallel > 1,
-         f"data_parallel={cfg.data_parallel}: ROADMAP A14"),
-        (cfg.renderer == "native", "renderer='native': ROADMAP A15"),
-        (not cfg.jit_translation_solve,
-         "jit_translation_solve=False (native host solve): ROADMAP A15"),
-        (cfg.profile_dir is not None, "profile_dir: ROADMAP A15"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(f"not ported to acr_tpu_torch yet: {what}")
+    """Every option value of ``Config`` runs in the port, so nothing
+    raises here. The TPU layout rewrites (``s2d_*``, ``merged_heads``)
+    are not options of the port: it builds the canonical network
+    whatever they say. An orbax ``model_path`` raises in
+    ``io.params.load_params`` (ROADMAP C5)."""
 
 
 def set_fp32_math() -> None:
@@ -194,6 +198,30 @@ def forward_fn(net: ACRNet, mano_l, mano_r, image: torch.Tensor,
     return out
 
 
+class Replica(NamedTuple):
+    """One replica's copy of what the forward reads, on its device."""
+    device: torch.device
+    net: ACRNet
+    mano_l: object
+    mano_r: object
+    merge_params: Optional[Dict[str, torch.Tensor]]
+
+
+def _tree_to(tree, device: torch.device):
+    """A MANO asset (a NamedTuple of tensors, or of such NamedTuples) on
+    ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return type(tree)(*(_tree_to(x, device) for x in tree))
+
+
+def device_guard(device: torch.device):
+    """``torch.cuda.device(device)`` for a card, no guard for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 class ACRPipeline:
     """Owns the network, the MANO assets and the device.
 
@@ -201,17 +229,34 @@ class ACRPipeline:
     (``init_params`` or ``io.params.from_flax``); None loads
     ``cfg.model_path``, an npz of flax paths. ``merge_params`` is the
     merge-mode fusion head, kept in fp32. ``device`` is ``cuda`` unless the
-    caller asks for the CPU; without a card a CUDA device raises.
+    caller asks for the CPU; without a card a CUDA device raises. Under
+    ``cfg.data_parallel > 1``, ``devices`` names this process's replica
+    devices (a card may repeat); by default they are the first local
+    cards, or the CPU for ``device="cpu"`` (``parallel.mesh.make_mesh``).
     """
 
     def __init__(self, cfg: Config, params: Optional[Dict[str, torch.Tensor]] = None,
-                 device="cuda", merge_params=None):
+                 device="cuda", merge_params=None,
+                 devices: Optional[Sequence] = None):
         check_slice(cfg)
-        self.device = resolve_device(device)
+        self.mesh = None
+        if cfg.data_parallel > 1:
+            # join the processes first (the config's coordinator, else the
+            # ACR_* environment), so the mesh knows its rank and world
+            if cfg.coordinator:
+                init_distributed(cfg.coordinator, cfg.num_processes,
+                                 cfg.process_id)
+            else:
+                init_distributed()
+            self.mesh = make_mesh(cfg.data_parallel, devices, device)
+            self.device = self.mesh.lead
+        else:
+            self.device = resolve_device(device)
         set_fp32_math()
         self.cfg = cfg
         self.dtype = (torch.bfloat16 if cfg.model_precision == "bf16"
                       else torch.float32)
+        self.replicas: List[Replica] = []
         if params is None:
             params, merge_params = load_params(cfg.model_path)
         self.merge_params = None if merge_params is None else {
@@ -237,6 +282,21 @@ class ACRPipeline:
         elif cfg.use_pallas_mano == "auto":
             self.mano_l = ManoAuto(self.mano_l, build_kernel_data(self.mano_l))
             self.mano_r = ManoAuto(self.mano_r, build_kernel_data(self.mano_r))
+        self._replicate()
+
+    def _replicate(self) -> None:
+        """``replicas``: the lead (this pipeline's own net and assets),
+        then a copy of the network (bf16 or int8 as served) and the MANO
+        assets for each other local replica of the mesh."""
+        lead = Replica(self.device, self.net, self.mano_l, self.mano_r,
+                       self.merge_params)
+        self.replicas = [lead]
+        for dev in (self.mesh.devices[1:] if self.mesh is not None else ()):
+            self.replicas.append(Replica(
+                dev, copy.deepcopy(self.net).to(dev),
+                _tree_to(self.mano_l, dev), _tree_to(self.mano_r, dev),
+                None if self.merge_params is None else
+                {k: v.to(dev) for k, v in self.merge_params.items()}))
 
     def _network(self, state_dict: Dict[str, torch.Tensor],
                  quantize: str = "none") -> ACRNet:
@@ -283,18 +343,53 @@ class ACRPipeline:
                                      input_size=self.cfg.input_size)
         del float_net
         self.net = self._network(quantized, self.cfg.quantize)
+        if self.replicas:                    # a recalibration after load
+            self._replicate()
 
     @torch.no_grad()
     def __call__(self, image, offsets, return_maps: bool = False
                  ) -> Dict[str, torch.Tensor]:
         """image uint8 (B, S, S, 3), offsets float32 (B, 10); numpy or
-        tensors. Returns device tensors without synchronizing."""
-        image = torch.as_tensor(image).to(self.device)
-        offsets = torch.as_tensor(offsets, dtype=torch.float32
-                                  ).to(self.device)
-        return forward_fn(self.net, self.mano_l, self.mano_r, image, offsets,
+        tensors. Returns device tensors (on the lead replica under a mesh)
+        without synchronizing, except for the gather across processes."""
+        image = torch.as_tensor(image)
+        offsets = torch.as_tensor(offsets, dtype=torch.float32)
+        if self.mesh is not None:
+            return self.run_sharded(
+                lambda rep, img, off: forward_fn(
+                    rep.net, rep.mano_l, rep.mano_r, img, off, self.cfg,
+                    return_maps=return_maps, merge_params=rep.merge_params),
+                image, offsets)
+        return forward_fn(self.net, self.mano_l, self.mano_r,
+                          image.to(self.device), offsets.to(self.device),
                           self.cfg, return_maps=return_maps,
                           merge_params=self.merge_params)
+
+    @torch.no_grad()
+    def run_sharded(self, fn: Callable[[Replica, torch.Tensor, torch.Tensor],
+                                       Dict[str, torch.Tensor]],
+                    image: torch.Tensor, offsets: torch.Tensor
+                    ) -> Dict[str, torch.Tensor]:
+        """``fn(replica, image shard, offsets shard)`` for each of this
+        process's shards, issued under its replica's device, the batch
+        first padded to a multiple of the mesh by repeating its last
+        frame; the outputs (batch-leading tensors) gathered on the lead
+        replica and trimmed to the batch."""
+        mesh = self.mesh
+        batch = image.shape[0]
+        image, pad = pad_batch(image, mesh.size)
+        offsets, _ = pad_batch(offsets, mesh.size)
+        images = split_batch(image, mesh.size)
+        offs = split_batch(offsets, mesh.size)
+        outs = []
+        for rep, k in zip(self.replicas, mesh.local_shards()):
+            with device_guard(rep.device):
+                outs.append(fn(rep, images[k].to(rep.device),
+                               offs[k].to(rep.device)))
+        out = gather_outputs(mesh, outs)
+        if pad:
+            out = {k: v[:batch] for k, v in out.items()}
+        return out
 
     @torch.no_grad()
     def refine(self, poses, betas, cam, offsets) -> Dict[str, torch.Tensor]:

@@ -9,7 +9,8 @@ around PyTorch's asynchronous launches:
 
 ``ACRApp.stream_step`` issues frame k's work (forward, OneEuro, refine,
 render) without a readback, and the host composites frame k-1 while the
-device runs. The render's gate reads two counts to the host, which
+device runs. With ``renderer='native'`` the host draws frame k-1 there
+too, through the C++ z-buffer. The render's gate reads two counts to the host, which
 waits for frame k's forward to finish before the render is issued: that
 read limits the overlap (a later perf item).
 
@@ -89,8 +90,12 @@ class StreamingLoop:
         out = self.app.unpack_stream(out)
         rendered = frame
         if out["detection_flag"].any() and self.app.visualizer is not None:
-            rendered = self.app.visualizer.compose_on_frame(
-                out["_rgba"], frame, meta, planar=True)
+            if "_rgba" in out:
+                rendered = self.app.visualizer.compose_on_frame(
+                    out["_rgba"], frame, meta, planar=True)
+            else:               # renderer='native': drawn on the host
+                rendered = self.app.visualizer.render_on_frame(
+                    frame, out, meta)
         dt = (time.perf_counter() - t0) * 1000.0
         self.latency.update(dt)
         self.latencies.append(dt)

@@ -49,13 +49,20 @@ PRE_COLORS = np.array([[0.46, 0.59, 0.64], [0.94, 0.71, 0.53]], np.float32)
 
 
 def compute_vertex_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
-    """Area-weighted vertex normals. verts (V,3), faces (F,3) -> (V,3)."""
+    """Area-weighted vertex normals. verts (V,3), faces (F,3) -> (V,3).
+
+    The sums are accumulated in a fixed order (``index_put`` with
+    ``accumulate``, sorted on CUDA; the same sums as ``index_add`` on the
+    CPU): MANO's vertex 767 has faces whose normals nearly cancel (a sum
+    of norm about 1e-12), so its direction, and the shading of the pixels
+    around it, followed the order of ``index_add``'s CUDA atomics
+    (ROADMAP C7)."""
     faces = faces.long()
     v0, v1, v2 = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
     fn = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)
     vn = torch.zeros_like(verts)
     for i in range(3):
-        vn = vn.index_add(0, faces[:, i], fn)
+        vn = vn.index_put((faces[:, i],), fn, accumulate=True)
     norm = torch.linalg.norm(vn, dim=-1, keepdim=True)
     return vn / torch.clamp(norm, min=1e-12)
 

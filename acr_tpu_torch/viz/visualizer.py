@@ -5,8 +5,9 @@ Counterpart of the image-path part of ``acr_tpu/viz/visualizer.py``
 over the network input (visible weight 0.9), then paste the square
 render back into the original frame through the inverse of the pad/crop
 offsets ('put_org', visualization.py:196-220), into a 4x frame above
-1000 px of render. The render runs on the pipeline's device; compositing
-is host numpy + cv2. The auxiliary views of ``show_items`` (keypoints,
+1000 px of render. The render runs on the pipeline's device, or with
+``renderer='native'`` on the host through the C++ z-buffer
+(``io.native``, intrinsics camera only); compositing is host numpy + cv2. The auxiliary views of ``show_items`` (keypoints,
 centre heat maps, the 3D skeleton) are host copies of the JAX package's,
 held equal to them by ``tests/test_torch_port_aux.py``.
 """
@@ -20,7 +21,11 @@ import torch
 
 from acr_tpu_torch.config import Config
 from acr_tpu_torch.utils.device import resolve_device
-from acr_tpu_torch.viz.raster import render_hands, render_overflow_probe
+from acr_tpu_torch.viz.raster import (
+    PRE_COLORS,
+    render_hands,
+    render_overflow_probe,
+)
 
 # MANO 21-joint output order (models/mano.py REORDER_21): wrist, then
 # thumb/index/middle/ring/pinky chains base->tip.
@@ -76,6 +81,11 @@ class Visualizer:
         if cm == "pt3d":
             cm = "fov" if cfg.perspective_proj else "ortho"
         self.camera = cm
+        if cfg.renderer == "native" and cm != "intrinsics":
+            raise ValueError(
+                "the native C++ rasterizer implements the intrinsics "
+                f"camera only; camera_model={cfg.camera_model!r} needs "
+                "renderer='tpu'")
 
     def _render_args(self, out: Dict, batch_idx: int):
         return (out["verts"][batch_idx], out["cam_trans"][batch_idx],
@@ -91,6 +101,53 @@ class Visualizer:
         (4, S, S) RGBA, without a readback."""
         return render_hands(*self._render_args(out, batch_idx),
                             planar=True, **self._render_kw())
+
+    def render_rgba(self, out: Dict, batch_idx: int = 0) -> np.ndarray:
+        """Render both hands of one image -> (S, S, 4) float RGBA on the
+        host: with ``renderer='native'`` the host C++ z-buffer
+        (``io.native``), else the device render, read back."""
+        if self.cfg.renderer == "native":
+            return self._render_native(out, batch_idx)
+        dev = self.faces.device
+        verts, cam_trans, det, faces = self._render_args(out, batch_idx)
+        return render_hands(torch.as_tensor(verts).to(dev),
+                            torch.as_tensor(cam_trans).to(dev),
+                            torch.as_tensor(det).to(dev), faces,
+                            **self._render_kw()).cpu().numpy()
+
+    def _render_native(self, out: Dict, batch_idx: int) -> np.ndarray:
+        """The detected hands' meshes, each hand's faces offset past the
+        vertices before it and coloured PRE_COLORS[hand], through the
+        host z-buffer; zeros when no hand is detected."""
+        from acr_tpu_torch.io.native import rasterize
+        det = np.asarray(out["detection_flag"][batch_idx])
+        verts = (np.asarray(out["verts"][batch_idx])
+                 + np.asarray(out["cam_trans"][batch_idx])[:, None, :])
+        faces_np = self.faces.cpu().numpy()
+        all_verts, all_faces, all_colors = [], [], []
+        offset = 0
+        for hand in range(2):
+            if not det[hand]:
+                continue
+            all_verts.append(verts[hand])
+            all_faces.append(faces_np[hand] + offset)
+            all_colors.append(np.tile(PRE_COLORS[hand], (faces_np.shape[1], 1)))
+            offset += verts.shape[1]
+        if not all_verts:
+            return np.zeros((self.cfg.render_size, self.cfg.render_size, 4),
+                            np.float32)
+        return rasterize(np.concatenate(all_verts),
+                         np.concatenate(all_faces),
+                         np.concatenate(all_colors),
+                         size=self.cfg.render_size,
+                         focal=float(self.cfg.focal_length))
+
+    def render_on_frame(self, bgr_frame: np.ndarray, out: Dict,
+                        meta: Dict) -> np.ndarray:
+        """Render (``render_rgba``), composite and paste back one frame's
+        host outputs; returns BGR."""
+        return self.compose_on_frame(self.render_rgba(out), bgr_frame, meta,
+                                     planar=False)
 
     def overflow_probe_device(self, out: Dict, batch_idx: int = 0) -> torch.Tensor:
         """The (4,) int32 capacity probe (raster.render_overflow_probe)."""

@@ -24,7 +24,15 @@ frames made from a seed:
   bf16 image path against the port's bf16 on the CPU and the card's fp32;
   the W8A8 modes calibrated at load on the committed frames, held to the
   int8 output-space budget; folder mode at fp32 b8, bf16 b8 and
-  bf16+int8 b16; and one image-mode frame with every auxiliary view.
+  bf16+int8 b16; and one image-mode frame with every auxiliary view;
+- data parallelism: folder mode at ``val_batch_size`` 16 on two
+  replicas of the card (``devices=["cuda:0", "cuda:0"]``), with and
+  without ``-t``, and two processes of one replica each joined over gloo
+  (``python3 chip_smoke.py --dp-worker ...`` is one of them), each chunk
+  against the 1-replica chunk step;
+- the native host paths (``renderer='native'``, the host translation
+  solve) in image and folder mode against the port on the CPU, and the
+  CLI in image mode with ``--profile_dir`` and its config session.
 It checks them against the port's own CPU run, and times the steps, the
 loop, the chunk step, folder mode and the kernels: each kernel by CUDA
 events around back-to-back calls (``ms``) and alone on the device, as
@@ -248,6 +256,11 @@ def phase_env():
     nvcc = subprocess.run([_nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     say("env", f"nvcc: {nvcc[-1]}")
+    # the host compiler: nvcc's, and the native library's (io/native.py)
+    from acr_tpu_torch.io.native import CXX
+    gxx = subprocess.run([CXX, "--version"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()
+    say("env", f"{CXX}: {gxx[0]}")
     found = {}
     for mod in ("triton", "cv2", "PIL", "yaml", "ninja"):
         try:
@@ -1759,6 +1772,435 @@ def phase_aux(weights, out_dir):
     return launches
 
 
+# ---- data parallelism, the native host paths and the CLI's tools ----
+DP = 2                        # replicas of the DP phases, both on cuda:0
+CHUNK_DP = 16                 # val_batch_size there: 8 hands per replica side
+# tests/test_parallel.py:98-102: the chunk's leaves against one replica
+DP_ATOL = {"_rgba": 1.5 / 255, "cam_trans": 5e-3, "pj2d_org": 2e-3}
+DP_TIMEOUT = 300              # seconds, each process of phase_dp_processes
+# native render against B1 on the same outputs: the pixels whose coverage
+# differs, at most this share of the covered pixels plus 20
+# (tests/test_native.py:73, the JAX package's own bound)
+NATIVE_COVER_SHARE = 0.02
+
+
+def _dp_cfg(frames_dir, out_dir, **over):
+    """Folder mode at val_batch_size 16, fused MANO on 'auto', render 512,
+    the probe on every chunk."""
+    kw = dict(val_batch_size=CHUNK_DP, use_pallas_mano="auto",
+              temporal_optimization=False)
+    kw.update(over)
+    return _throughput_cfg(frames_dir, out_dir, **kw)
+
+
+def _host_out(out):
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _check_chunk(got, want, what):
+    """Leaf for leaf at DP_ATOL (2e-4 where unnamed), the flags and the
+    probe equal; returns the max abs errors."""
+    import numpy as np
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: keys {sorted(got)} vs {sorted(want)}")
+    errs = {}
+    for k in want:
+        if want[k].dtype == bool or k == "_raster_overflow":
+            if not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"{what}: {k} differs")
+            continue
+        errs[k] = float(np.abs(got[k] - want[k]).max())
+        if errs[k] > DP_ATOL.get(k, 2e-4):
+            raise AssertionError(f"{what}: {k} err {errs[k]}")
+    return errs
+
+
+def _dp_kernel_checks(app, out):
+    """B4 and B1 on the card against their plain versions at the DP
+    path's shapes: replica 1's MANO call (its 8 right hands, on its own
+    kernel data) and its first frame's binned render. Launched after the
+    path's counts were read."""
+    import torch
+    from acr_tpu_torch.ops import mano_kernel as mk
+    from acr_tpu_torch.viz import raster as R
+    from acr_tpu_torch.viz import raster_cuda as rc
+    rep = app.pipeline.replicas[1]
+    data = rep.mano_r.kernel
+    half = slice(CHUNK_DP // DP, CHUNK_DP)
+    poses = out["poses"][half, 1].to(rep.device)
+    betas = out["betas"][half, 1].to(rep.device)
+    coef, g_rows, _ = mk.blend_skin_operands(data, poses, betas)
+    got = mk.fused_blend_skin(data, coef, g_rows)
+    mano_err = float((got - mk.fused_blend_skin_plain(data, coef, g_rows))
+                     .abs().max())
+    if mano_err > 1e-5:
+        raise AssertionError(f"dp: B4 against its plain version {mano_err}")
+    k = half.start
+    screen, faces, attrs = R.prepare_scene(
+        out["verts"][k], out["cam_trans"][k], out["detection_flag"][k],
+        app._replica_viz[rep.device].faces, SIZE, app.cfg.focal_length)
+    tri, inv = rc.face_rows(screen, faces)
+    args, table = binned_inputs(tri, inv, attrs, SIZE,
+                                min(rc.BIN_CAP, faces.shape[0]))
+    got = rc.raster_binned(*args, table=table)
+    want = rc.raster_binned_plain(*args, table=table)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("dp: B1 differs from its plain version")
+    return mano_err
+
+
+def phase_dp(card, weights, frames_dir, out_dir):
+    """Data parallelism on one card: folder mode at val_batch_size 16 on a
+    2-replica mesh over devices [cuda:0, cuda:0]. run_folder over the 20
+    frames (the launch counts zeroed just before, read just after: the
+    "dp" path), then one chunk without -t and two with -t, each against
+    the 1-replica chunk step on the same frames, and JAX's bypass
+    reasons. No speedup is expected on one card: a correctness run."""
+    import torch
+    from acr_tpu_torch.pipeline.app import ACRApp
+    t0 = time.perf_counter()
+    devices = ["cuda:0"] * DP
+    dp = ACRApp(_dp_cfg(frames_dir, os.path.join(out_dir, "folder") + "/",
+                        data_parallel=DP), params=weights, devices=devices)
+    if not dp._sharded_chunk or len(dp.pipeline.replicas) != DP:
+        raise AssertionError(f"dp: not sharded ({dp._fused_bypass_reason})")
+    _reset_launch_counts()
+    results = dp.run_folder()
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    n_chunks = -(-N_THROUGHPUT // CHUNK_DP)
+    written = [o for o in os.listdir(dp.output_dir) if o.endswith(".jpg")]
+    say("dp", f"run_folder over {N_THROUGHPUT} frames in {n_chunks} chunks "
+        f"of {CHUNK_DP} on {DP} replicas {devices} (sharded forward and "
+        f"render, no -t): {len(results)} results, {len(written)} frames "
+        f"written; launches {launches}")
+    if len(results) != N_THROUGHPUT or len(written) != N_THROUGHPUT or any(
+            len(h) != 2 for h in results.values()):
+        raise AssertionError("dp: run_folder results")
+    # per chunk: a render per frame (the padded ones too), one fused MANO
+    # launch per side and replica (8 hands each, PALLAS_MANO_MIN_BATCH)
+    if launches != {"raster_binned": n_chunks * CHUNK_DP,
+                    "mano_fused": n_chunks * 2 * DP}:
+        raise AssertionError(f"dp: launches {launches}")
+
+    image, offsets = _chunk_inputs(frames_dir, CHUNK_DP)
+    one = ACRApp(_dp_cfg(frames_dir, None), params=weights, device="cuda")
+    want = _host_out(one.chunk_step(image, offsets))
+    got_t = dp.chunk_step(image, offsets)
+    got = _host_out(got_t)
+    errs = _check_chunk(got, want, "dp chunk without -t")
+    mano_err = _dp_kernel_checks(dp, got_t)
+    say("dp", f"one chunk of {CHUNK_DP} without -t on {DP} replicas against "
+        f"one replica, max abs err {json.dumps(errs)} (tol {DP_ATOL}, else "
+        f"2e-4); B4 on replica 1's 8 hands against its plain version "
+        f"{mano_err:g}, B1 on its first frame bit for bit")
+
+    tdp = ACRApp(_dp_cfg(frames_dir, None, data_parallel=DP,
+                         temporal_optimization=True),
+                 params=weights, devices=devices)
+    tone = ACRApp(_dp_cfg(frames_dir, None, temporal_optimization=True),
+                  params=weights, device="cuda")
+    odd = ACRApp(_dp_cfg(frames_dir, None, data_parallel=DP,
+                         val_batch_size=CHUNK_DP - 1),
+                 params=weights, devices=devices)
+    reasons = {"-t": tdp._fused_bypass_reason,
+               "val_batch_size 15": odd._fused_bypass_reason}
+    say("dp", f"per-stage reasons: {json.dumps(reasons)}")
+    if (tdp._sharded_chunk or "OneEuro" not in reasons["-t"]
+            or odd._sharded_chunk or "divide" not in reasons["val_batch_size 15"]):
+        raise AssertionError(f"dp: bypass reasons {reasons}")
+    for i in range(2):                      # the filter state carries over
+        errs = _check_chunk(_host_out(tdp.chunk_step(image, offsets)),
+                            _host_out(tone.chunk_step(image, offsets)),
+                            f"dp chunk {i} with -t")
+        say("dp", f"chunk {i} with -t (sharded forward; OneEuro, refine and "
+            f"render on the lead replica) against one replica: max abs err "
+            f"{json.dumps(errs)}")
+    state_err = max(float((a - b).abs().max()) for a, b in zip(
+        _state_leaves(tdp.filter_state), _state_leaves(tone.filter_state)))
+    if state_err > 2e-4:
+        raise AssertionError(f"dp: OneEuro state err {state_err}")
+
+    t_one = cuda_ms(lambda: one.chunk_step(image, offsets), iters=3, reps=3,
+                    warmup=1)
+    t_dp = cuda_ms(lambda: dp.chunk_step(image, offsets), iters=3, reps=3,
+                   warmup=1)
+    say("dp", f"b{CHUNK_DP} chunk step without -t (forward + {CHUNK_DP} "
+        f"renders): 1 replica {ms_text(t_one)}; {DP} replicas on one card "
+        f"{ms_text(t_dp)} [{card}] ({time.perf_counter() - t0:.1f} s)")
+    del dp, one, tdp, tone, odd
+    torch.cuda.empty_cache()
+    return launches, want, {"one": t_one[0], "dp": t_dp[0]}
+
+
+def dp_worker(rank, port, frames_dir, out_path):
+    """One process of phase_dp_processes: a 2-process mesh of one replica
+    each (cuda:0), one chunk of 16 frames; saves the gathered chunk."""
+    import numpy as np
+    import torch
+    from acr_tpu_torch.pipeline.app import ACRApp
+    cfg = _dp_cfg(frames_dir, None, data_parallel=DP,
+                  coordinator=f"localhost:{port}", num_processes=DP,
+                  process_id=rank)
+    app = ACRApp(cfg, params=_weights(CAM_SCALE["near"]), device="cuda")
+    mesh = app.pipeline.mesh
+    if (mesh.rank, mesh.size, len(mesh.devices)) != (rank, DP, 1) or not \
+            app._sharded_chunk:
+        raise AssertionError(f"rank {rank}: mesh {mesh}")
+    image, offsets = _chunk_inputs(frames_dir, CHUNK_DP)
+    _reset_launch_counts()
+    out = _host_out(app.chunk_step(image, offsets))
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _host_out(app.chunk_step(image, offsets))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    np.savez(out_path, **out)
+    torch.distributed.destroy_process_group()
+    print(f"rank {rank}: OK; launches {json.dumps(launches)}; chunk step "
+          f"with the gather and readback, host wall {sorted(walls)} ms",
+          flush=True)
+
+
+def phase_dp_processes(card, frames_dir, want, out_dir):
+    """Two fresh interpreters join through init_distributed (gloo) at an
+    ephemeral localhost port, each owns one replica on cuda:0 and runs one
+    chunk of 16 frames at 512 px; every rank must hold the whole gathered
+    chunk, equal to the 1-process chunk at DP_ATOL. Each process has its
+    own time limit."""
+    import socket
+    import numpy as np
+    t0 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, ACR_INIT_TIMEOUT=str(DP_TIMEOUT))
+    env.pop("ACR_COORDINATOR", None)
+    outs = [os.path.join(out_dir, f"rank{r}.npz") for r in range(DP)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--dp-worker",
+         str(r), str(port), frames_dir, outs[r]], cwd=out_dir, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(DP)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        line = [x for x in log.splitlines() if x.startswith(f"rank {r}:")]
+        if p.returncode != 0 or not line:
+            raise AssertionError(f"rank {r} failed ({p.returncode}):\n"
+                                 f"{log[-3000:]}")
+        say("dp_processes", f"{line[-1]} [{card}]")
+    for r in range(DP):
+        with np.load(outs[r]) as got:
+            errs = _check_chunk({k: got[k] for k in got.files}, want,
+                                f"rank {r}'s gathered chunk")
+        say("dp_processes", f"rank {r} holds the whole chunk of {CHUNK_DP}: "
+            f"against one process, max abs err {json.dumps(errs)}")
+    say("dp_processes", f"({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_native(card, apps, frames, weights, frames_dir, out_dir):
+    """The native host paths on the card: the main path's 3 image-mode
+    frames with renderer='native' and jit_translation_solve=False against
+    the same app on the CPU; the native render against B1's on the same
+    outputs; then one folder chunk at b8 (per-stage: the chunk step
+    without its render, the host solve, the host render per frame)
+    against the CPU's chunk step and host solve. Host ms per frame of
+    both beside render_hands'."""
+    import logging
+    import numpy as np
+    import torch
+    from acr_tpu_torch.config import Config
+    from acr_tpu_torch.pipeline.app import ACRApp
+    t0 = time.perf_counter()
+    cfg = Config(input_size=SIZE, render_size=SIZE, configs_yml="",
+                 centermap_conf_thresh=-1e9, renderer="native",
+                 jit_translation_solve=False,
+                 output_dir=os.path.join(out_dir, "image") + "/")
+    gpu = ACRApp(cfg, params=weights, device="cuda")
+    cpu = ACRApp(dataclasses.replace(
+        cfg, output_dir=os.path.join(out_dir, "image_cpu") + "/"),
+        params=weights, device="cpu")
+    _reset_launch_counts()
+    outs = []
+    for i, frame in enumerate(frames):
+        gpu.process_frame(frame, f"native_{i}.jpg")
+        outs.append(gpu.last_output)
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    if launches or any("_rgba" in o for o in outs):
+        raise AssertionError(f"native: a device render ran: {launches}")
+    errs = {"verts": 0.0, "cam_trans": 0.0, "rgba": 0.0}
+    cover = []
+    for i, frame in enumerate(frames):
+        cpu.process_frame(frame, f"native_{i}.jpg")
+        g, c = outs[i], cpu.last_output
+        for k in ("verts", "cam_trans"):
+            errs[k] = max(errs[k], float(np.abs(g[k] - c[k]).max()))
+        rgba_g = gpu.visualizer.render_rgba(g)
+        rgba_c = cpu.visualizer.render_rgba(c)
+        errs["rgba"] = max(errs["rgba"], float(np.abs(rgba_g - rgba_c).max()))
+        b1 = apps["near"].visualizer.render_rgba(g)      # B1, read back
+        native_cov, b1_cov = rgba_g[..., 3] > 0, b1[..., 3] > 0
+        differ = int((native_cov != b1_cov).sum())
+        cover.append((differ, int(b1_cov.sum())))
+        if not native_cov.any() or differ > NATIVE_COVER_SHARE * b1_cov.sum() + 20:
+            raise AssertionError(f"native frame {i}: coverage differs from "
+                                 f"B1's at {differ} of {b1_cov.sum()} px")
+    written = sorted(os.listdir(gpu.output_dir))
+    say("native", f"{len(frames)} image-mode frames, renderer native + host "
+        f"solve: card vs CPU max abs err {json.dumps(errs)} (tol 1e-4 on "
+        f"verts and the solved cam_trans); coverage against B1's render of "
+        f"the same outputs differs at {[d for d, _ in cover]} of "
+        f"{[n for _, n in cover]} covered px "
+        f"({sum(d for d, _ in cover) / max(1, sum(n for _, n in cover)):.4f}); "
+        f"written {written}; launches {launches}")
+    if errs["verts"] > 1e-4 or errs["cam_trans"] > 1e-4 or len(written) != len(frames):
+        raise AssertionError("native: card and CPU disagree")
+
+    # host ms per frame: the native render and the host solve, beside
+    # render_hands on the card
+    g = outs[0]
+    n = 10
+    w0 = time.perf_counter()
+    for _ in range(n):
+        gpu.visualizer.render_rgba(g)
+    render_ms = (time.perf_counter() - w0) / n * 1e3
+    w0 = time.perf_counter()
+    for _ in range(n):
+        gpu._host_translation(dict(g))
+    solve_ms = (time.perf_counter() - w0) / n * 1e3
+    dev_out = {k: torch.as_tensor(g[k]).cuda()
+               for k in ("verts", "cam_trans", "detection_flag")}
+    rh = cuda_ms(lambda: apps["near"].visualizer.render_rgba_device(dev_out),
+                 iters=20)
+    say("native", f"host ms per frame ({n} calls, host clock): native render "
+        f"at {SIZE} px {render_ms:.3f} ms, host RANSAC solve (2 hands) "
+        f"{solve_ms:.3f} ms; render_hands on the card {ms_text(rh)} [{card}]")
+
+    # one folder chunk at b8 with both host paths
+    chunk_dir = os.path.join(out_dir, "chunk_frames")
+    os.makedirs(chunk_dir, exist_ok=True)
+    names = sorted(os.listdir(frames_dir))[:CHUNK]
+    for name in names:
+        dst = os.path.join(chunk_dir, name)
+        if not os.path.exists(dst):
+            os.symlink(os.path.join(frames_dir, name), dst)
+    fcfg = _throughput_cfg(chunk_dir, os.path.join(out_dir, "folder") + "/",
+                           renderer="native", jit_translation_solve=False)
+    app = ACRApp(fcfg, params=weights, device="cuda")
+    caught = []
+    handler = logging.Handler()
+    handler.emit = lambda record: caught.append(record.getMessage())
+    logger = logging.getLogger("acr_tpu_torch")
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    _reset_launch_counts()
+    try:
+        w0 = time.perf_counter()
+        results = app.run_folder()
+        wall = time.perf_counter() - w0
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    bypass = [m for m in caught if "bypassed" in m]
+    written = [o for o in os.listdir(app.output_dir) if o.endswith(".jpg")]
+    image, offsets = _chunk_inputs(chunk_dir, CHUNK)
+    cpu_app = ACRApp(dataclasses.replace(fcfg, renderer="none"),
+                     params=weights, device="cpu")
+    want = _host_out(cpu_app.chunk_step(image, offsets))
+    cpu_app._host_translation(want)
+    got = app.last_output
+    err = {k: float(np.abs(got[k] - want[k]).max())
+           for k in ("verts", "cam_trans")}
+    say("native", f"folder mode, one chunk of {CHUNK} ({FRAME_HW[0]}x"
+        f"{FRAME_HW[1]}, -t, native render + host solve) in {wall:.2f} s: "
+        f"{len(results)} results, {len(written)} frames written; logged "
+        f"{bypass}; launches {launches}; against the CPU's chunk step and "
+        f"host solve, max abs err {json.dumps(err)} (tol 1e-4)")
+    if (len(results) != CHUNK or len(written) != CHUNK or "_rgba" in got
+            or not bypass or "host translation solve" not in bypass[0]
+            or launches.get("raster_binned") or max(err.values()) > 1e-4):
+        raise AssertionError("native: the folder chunk")
+    say("native", f"({time.perf_counter() - t0:.1f} s)")
+    return {"render_ms": render_ms, "solve_ms": solve_ms, "render_hands_ms": rh[0]}
+
+
+def _write_flax_npz(params, path):
+    """A state dict as the npz of flax paths that load_params reads (the
+    inverse of io.params.from_flax for the float network)."""
+    import numpy as np
+    flat = {}
+    for key, v in params.items():
+        parts, a = key.split("."), v.numpy()
+        if parts[-1] == "weight":
+            parts[-1] = "kernel"
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        flat["/".join(parts)] = a
+    np.savez(path, **flat)
+
+
+def phase_cli(card, weights, frames_dir, out_dir):
+    """``python -m acr_tpu_torch.cli`` in image mode on the card with
+    --profile_dir: the config session's YAML exists under active_configs/
+    while the run lasts and is gone after it, and the trace is a device
+    trace (it names raster_binned_kernel)."""
+    import torch
+    from acr_tpu_torch.io.params import load_params
+    t0 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    npz = os.path.join(out_dir, "weights.npz")
+    _write_flax_npz(weights, npz)
+    loaded, _ = load_params(npz)
+    if not all(torch.equal(loaded[k], weights[k]) for k in weights):
+        raise AssertionError("cli: the flax-path npz does not round-trip")
+    prof = os.path.join(out_dir, "profile")
+    active = os.path.join(out_dir, "active_configs")
+    image = os.path.join(frames_dir, sorted(os.listdir(frames_dir))[0])
+    cmd = [sys.executable, "-m", "acr_tpu_torch.cli", "--demo_mode", "image",
+           "--inputs", image, "--model_path", npz, "--configs_yml", "",
+           "--centermap_conf_thresh=-1e9", "--profile_dir", prof,
+           "--output_dir", os.path.join(out_dir, "out") + "/"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen(cmd, cwd=out_dir, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    seen = set()
+    deadline = time.perf_counter() + DP_TIMEOUT
+    while proc.poll() is None and time.perf_counter() < deadline:
+        if os.path.isdir(active):
+            seen.update(os.listdir(active))
+        time.sleep(0.05)
+    if proc.poll() is None:
+        proc.kill()
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise AssertionError(f"cli failed ({proc.returncode}):\n{log[-3000:]}")
+    left = os.listdir(active) if os.path.isdir(active) else []
+    traces = os.listdir(prof) if os.path.isdir(prof) else []
+    names_kernel = False
+    if len(traces) == 1:
+        with open(os.path.join(prof, traces[0])) as f:
+            names_kernel = "raster_binned_kernel" in f.read()
+    written = os.listdir(os.path.join(out_dir, "out"))
+    say("cli", f"{' '.join(cmd[1:4])} ... --profile_dir: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s; session YAML seen during the run "
+        f"{sorted(seen)}, left after it {left}; trace {traces} names "
+        f"raster_binned_kernel: {names_kernel}; written {written} [{card}]")
+    if (len(seen) != 1 or not next(iter(seen)).endswith(".yaml") or left
+            or not names_kernel or written != [os.path.basename(image)]):
+        raise AssertionError("cli: session, trace or output")
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "acr_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -1767,6 +2209,9 @@ def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA card: torch.cuda.is_available() is False")
+    if sys.argv[1:2] == ["--dp-worker"]:     # one rank of phase_dp_processes
+        rank, port, frames_dir, out_path = sys.argv[2:6]
+        return dp_worker(int(rank), int(port), frames_dir, out_path)
     card, _ = phase_env()
     phase_build()
     kin = phase_kernels()
@@ -1799,6 +2244,16 @@ def main():
                                         os.path.join(out_dir, "precision"))
     aux_launches = phase_aux(weights, os.path.join(out_dir, "aux"))
     say("precision", f"the bf16, int8 and aux phases took "
+        f"{time.perf_counter() - t_new:.1f} s")
+    t_new = time.perf_counter()
+    dp_launches, dp_want, _ = phase_dp(card, weights, frames_dir,
+                                       os.path.join(out_dir, "dp"))
+    phase_dp_processes(card, frames_dir, dp_want,
+                       os.path.join(out_dir, "dp_processes"))
+    phase_native(card, apps, frames, weights, frames_dir,
+                 os.path.join(out_dir, "native"))
+    phase_cli(card, weights, frames_dir, os.path.join(out_dir, "cli"))
+    say("dp", f"the dp, native and cli phases took "
         f"{time.perf_counter() - t_new:.1f} s")
     device["mano_fused"] = tdevice[f"mano_fused_{CHUNK}"]
     # B4 at the throughput path's shape: 8 hands per launch
@@ -1834,6 +2289,9 @@ def main():
         **{f"folder {k}": v[4]["raster_binned"] for k, v in p_runs.items()}}
     mano["paths"] = {f"folder {k}": v[4]["mano_fused"]
                      for k, v in p_runs.items()}
+    # folder mode at b16 on 2 replicas of one card, counted from 0
+    binned["paths"]["dp"] = dp_launches["raster_binned"]
+    mano["paths"]["dp"] = dp_launches["mano_fused"]
     binned["scenes"] = {
         name: {"ms": r["ms"][0], "device_ms": r["device_ms"],
                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],

@@ -1,7 +1,7 @@
-"""The port's host-side copies equal the originals, its unported options
-raise (an orbax checkpoint directory among them, C5), the options it
-runs pass ``check_slice``, and neither an acr_tpu_torch module nor chip_smoke.py imports JAX
-or the JAX package."""
+"""The port's host-side copies equal the originals, an orbax checkpoint
+directory raises (C5), every option passes ``check_slice``, and neither
+an acr_tpu_torch module nor chip_smoke.py imports JAX or the JAX
+package."""
 
 import dataclasses
 import inspect
@@ -113,19 +113,20 @@ def test_meters_and_capture_copies_equal(module_pair, names):
             inspect.getsource(getattr(j, name)), name
 
 
-@pytest.mark.parametrize("override,item", [
-    (dict(jit_translation_solve=False), "A15"),
-    (dict(data_parallel=2), "A14"),
-    (dict(renderer="native"), "A15"),
-    (dict(profile_dir="trace"), "A15"),
-    (dict(demo_mode="folder", val_batch_size=2, data_parallel=4,
-          model_precision="bf16"), "A14"),
+@pytest.mark.parametrize("override", [
+    dict(data_parallel=2),
+    dict(renderer="native"),
+    dict(jit_translation_solve=False),
+    dict(profile_dir="trace"),
+    dict(demo_mode="folder", val_batch_size=2, data_parallel=4,
+         model_precision="bf16", renderer="native",
+         jit_translation_solve=False, profile_dir="trace"),
 ])
-def test_unported_options_raise(override, item):
-    with pytest.raises(NotImplementedError, match=item):
-        check_slice(tconfig.Config(**override))
-    # the TPU rewrites, the default slice and the streaming slice
-    # (-t, 2048 px, every demo mode at batch 1) are accepted
+def test_last_options_accepted(override):
+    # data parallelism (A14), the native renderer, the host solve and the
+    # profiler trace (A15) run now, alone and together; so do the TPU
+    # rewrites, the default slice and the streaming slice
+    check_slice(tconfig.Config(**override))
     check_slice(tconfig.Config(s2d_highres=False, merged_heads=False))
     for mode in ("image", "folder", "video", "webcam"):
         check_slice(tconfig.Config(demo_mode=mode, temporal_optimization=True,
@@ -169,12 +170,19 @@ def test_orbax_directory_raises_c5(tmp_path):
         ACRPipeline(tconfig.Config(model_path=str(tmp_path)), device="cpu")
 
 
-def test_cli_rejects_unported_mode_before_loading():
+def test_cli_data_parallel_over_one_card_raises_before_loading(monkeypatch,
+                                                              tmp_path):
+    # one visible card cannot hold two replicas by default: make_mesh
+    # raises JAX's ValueError before any weight is read
     from acr_tpu_torch.cli import main
-    with pytest.raises(NotImplementedError, match="A14"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.delenv("ACR_COORDINATOR", raising=False)
+    monkeypatch.chdir(tmp_path)             # the config session's directory
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
         main(["--demo_mode", "video", "--val_batch_size", "2",
-              "--data_parallel", "2",
-              "--model_path", "/nonexistent.npz", "--device", "cpu"])
+              "--data_parallel", "2", "--configs_yml", "",
+              "--model_path", "/nonexistent.npz"])
 
 
 def test_no_module_imports_jax():
@@ -193,10 +201,14 @@ def test_no_module_imports_jax():
         "       ('temporal', 'streaming', 'capture')}\n"
         "new |= {'acr_tpu_torch.utils.meters', 'acr_tpu_torch.utils.device',\n"
         "        'acr_tpu_torch.ops.mano_kernel', 'acr_tpu_torch.ops.cuda_lib',\n"
-        "        'acr_tpu_torch.ops.quant', 'acr_tpu_torch.viz.skeleton3d'}\n"
+        "        'acr_tpu_torch.ops.quant', 'acr_tpu_torch.viz.skeleton3d',\n"
+        "        'acr_tpu_torch.parallel', 'acr_tpu_torch.parallel.mesh',\n"
+        "        'acr_tpu_torch.io.native', 'acr_tpu_torch.utils.profiling',\n"
+        "        'acr_tpu_torch.utils.session',\n"
+        "        'acr_tpu_torch.parser.centermap_gt'}\n"
         "assert new <= set(names), names\n"
         "print(len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 36
+    assert int(proc.stdout.strip()) >= 42

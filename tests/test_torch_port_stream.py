@@ -139,9 +139,3 @@ def test_folder_mode_matches_jax(flat, tmp_path, frames_dir):
     for a, b in zip(state_leaves(app.filter_state),
                     jax.tree.leaves(japp.filter_state)):
         np.testing.assert_allclose(a, np.asarray(b), atol=1e-5)
-    # an option still unported at val_batch_size > 1 raises, naming its item
-    with pytest.raises(NotImplementedError, match="A14"):
-        ACRApp(Config(**_kw(tmp_path, "b2", demo_mode="folder",
-                            inputs=frames_dir, val_batch_size=2,
-                            data_parallel=2)),
-               params=from_flax(flat), device="cpu")
