@@ -17,6 +17,12 @@ The canonical tree only: checkpoints on disk are canonical
 (``acr_tpu/pipeline/infer.py:183-193``). The merge-mode fusion head
 (``parser/fusion_fc``) lives outside the network; ``split_parser``
 takes it out first.
+
+The other way: ``flax_paths`` lists the flax paths and shapes of the
+canonical network (JAX's ``enumerate_flax_paths``, read from the port's
+``ACRNet`` on the meta device), ``to_flax`` turns a state dict back into
+flax leaves, and ``save_params_npz`` writes the npz JAX's
+``save_params_npz`` writes.
 """
 
 from __future__ import annotations
@@ -55,6 +61,69 @@ def split_parser(flat: Dict[str, np.ndarray]
             np.asarray(fc["kernel"], np.float32).T)),
         "bias": torch.from_numpy(np.asarray(fc["bias"], np.float32).copy()),
     }
+
+
+def _flax_leaf(key: str, shape: Tuple[int, ...]):
+    """State-dict key and shape -> (flax path tuple, flax shape, the
+    permutation that takes the torch array to flax's layout or None)."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    perm = None
+    if leaf == "weight":
+        leaf = "kernel"
+        perm = (2, 3, 1, 0) if len(shape) == 4 else (1, 0)   # OIHW -> HWIO
+    elif leaf == "kernel_q":
+        perm = (2, 3, 1, 0)
+    path = tuple(parts[:-1]) + (leaf,)
+    if perm is not None:
+        shape = tuple(shape[i] for i in perm)
+    return path, tuple(shape), perm
+
+
+def flax_paths(net: Optional[nn.Module] = None
+               ) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
+    """{flax path tuple: flax shape} of ``net`` (default: the canonical
+    float ACRNet, built on the meta device), in JAX's order: a params
+    tree's keys sorted at every level, as ``jax.eval_shape`` returns them
+    (``tools/convert_checkpoint.py:145`` ``enumerate_flax_paths``).
+    The inverse of the leaf renames of ``from_flax``."""
+    out = {}
+    for key, ref in _reference_net(net).state_dict().items():
+        path, shape, _ = _flax_leaf(key, tuple(ref.shape))
+        out[path] = shape
+    return {p: out[p] for p in sorted(out)}
+
+
+def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of ``from_flax``: a state dict (float, or quantized)
+    -> {'/'-joined flax path: array}, conv kernels OIHW -> HWIO, Dense
+    (out, in) -> (in, out), in JAX's order (``flax_paths``)."""
+    flat = {}
+    for key, value in state_dict.items():
+        arr = value.detach().cpu().numpy()
+        path, _, perm = _flax_leaf(key, tuple(arr.shape))
+        if perm is not None:
+            arr = arr.transpose(perm)
+        flat[path] = np.ascontiguousarray(arr)
+    return {"/".join(p): flat[p] for p in sorted(flat)}
+
+
+def save_params_npz(path: str, state_dict: Dict[str, torch.Tensor],
+                    merge_params: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> None:
+    """Write ``state_dict`` as the npz of flax paths that JAX's
+    ``acr_tpu.io.params.save_params_npz`` writes for the same weights
+    (and ``load_params`` / JAX's ``load_params_npz`` read); with
+    ``merge_params`` (``split_parser``'s {'weight', 'bias'}), the
+    ``parser/fusion_fc`` leaves after the network's, where JAX's
+    converter puts them."""
+    flat = to_flax(state_dict)
+    if merge_params is not None:
+        flat["parser/fusion_fc/kernel"] = np.ascontiguousarray(
+            merge_params["weight"].detach().cpu().numpy().T)
+        flat["parser/fusion_fc/bias"] = \
+            merge_params["bias"].detach().cpu().numpy()
+    np.savez(path, **flat)
 
 
 def from_flax(flat: Dict[str, np.ndarray],

@@ -32,7 +32,15 @@ frames made from a seed:
   against the 1-replica chunk step;
 - the native host paths (``renderer='native'``, the host translation
   solve) in image and folder mode against the port on the CPU, and the
-  CLI in image mode with ``--profile_dir`` and its config session.
+  CLI in image mode with ``--profile_dir`` and its config session;
+- the asset chain from the reference's layout up (``phase_assets``):
+  a full-width stand-in ``wild.pkl`` and MANO pickles through
+  ``python -m acr_tpu_torch.tools.ingest_real_assets --device cuda``
+  (its smoke in image mode at 512 px), the converted npz against the
+  committed MANO assets and the card against the CPU port, then
+  ``make_synthetic_checkpoint`` and the CLI on its npz; and the run tools
+  (``phase_tools``): ``profile_step`` at batch 8, ``dryrun_multichip(2)``
+  and ``quant_accuracy`` for int8 and int8_pc.
 It checks them against the port's own CPU run, and times the steps, the
 loop, the chunk step, folder mode and the kernels: each kernel by CUDA
 events around back-to-back calls (``ms``) and alone on the device, as
@@ -2136,31 +2144,17 @@ def phase_native(card, apps, frames, weights, frames_dir, out_dir):
     return {"render_ms": render_ms, "solve_ms": solve_ms, "render_hands_ms": rh[0]}
 
 
-def _write_flax_npz(params, path):
-    """A state dict as the npz of flax paths that load_params reads (the
-    inverse of io.params.from_flax for the float network)."""
-    import numpy as np
-    flat = {}
-    for key, v in params.items():
-        parts, a = key.split("."), v.numpy()
-        if parts[-1] == "weight":
-            parts[-1] = "kernel"
-            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
-        flat["/".join(parts)] = a
-    np.savez(path, **flat)
-
-
 def phase_cli(card, weights, frames_dir, out_dir):
     """``python -m acr_tpu_torch.cli`` in image mode on the card with
     --profile_dir: the config session's YAML exists under active_configs/
     while the run lasts and is gone after it, and the trace is a device
     trace (it names raster_binned_kernel)."""
     import torch
-    from acr_tpu_torch.io.params import load_params
+    from acr_tpu_torch.io.params import load_params, save_params_npz
     t0 = time.perf_counter()
     os.makedirs(out_dir, exist_ok=True)
     npz = os.path.join(out_dir, "weights.npz")
-    _write_flax_npz(weights, npz)
+    save_params_npz(npz, weights)
     loaded, _ = load_params(npz)
     if not all(torch.equal(loaded[k], weights[k]) for k in weights):
         raise AssertionError("cli: the flax-path npz does not round-trip")
@@ -2199,6 +2193,201 @@ def phase_cli(card, weights, frames_dir, out_dir):
     if (len(seen) != 1 or not next(iter(seen)).endswith(".yaml") or left
             or not names_kernel or written != [os.path.basename(image)]):
         raise AssertionError("cli: session, trace or output")
+
+
+# ---- the asset chain and the run tools ----
+TOOLS_TIMEOUT = 300           # seconds, the CLI run of phase_assets
+
+
+def _run_module(name, argv):
+    """``python -m <name> <argv>`` in this process (``runpy``, as the
+    interpreter runs it), so the launch counts see its kernels. Returns
+    (exit code, its standard output); the output is printed too."""
+    import contextlib
+    import io
+    import runpy
+    buf = io.StringIO()
+    saved = sys.argv
+    sys.argv = [name] + list(argv)
+    code = 0
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_module(name, run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        code = e.code or 0
+    finally:
+        sys.argv = saved
+    text = buf.getvalue()
+    print(text, end="" if text.endswith("\n") else "\n", flush=True)
+    return code, text
+
+
+def _host_walls(text):
+    """{step: seconds} from the ingest report's host wall lines."""
+    import re
+    return {m.group(1): float(m.group(2)) for m in
+            re.finditer(r"\[(\w+): ([0-9.]+) s host wall\]", text)}
+
+
+def phase_assets(card, out_dir):
+    """The asset chain on the card, from the reference's layout up, with
+    nothing of JAX: a full-width stand-in wild.pkl (stand_in_state_dict,
+    fp16 under module., as the reference saves it) and MANO pickles of
+    the committed synthetic assets (left shapedirs unflipped, protocol
+    2); ``python -m acr_tpu_torch.tools.ingest_real_assets --device
+    cuda`` on them, its smoke in image mode at 512 px on a 720p frame
+    (B1 counted from 0: the "ingest" path); the converted MANO npz
+    against the committed one; the card against the CPU port on the
+    converted npz; then make_synthetic_checkpoint and the CLI on it.
+    Returns (B1's launches in the ingest run, the synthetic npz, the
+    converted npz, the smoke frame)."""
+    import pickle
+    import cv2
+    import numpy as np
+    import torch
+    from acr_tpu_torch.config import Config
+    from acr_tpu_torch.pipeline.infer import ACRPipeline
+    from acr_tpu_torch.pipeline.preprocess import img_preprocess
+    from acr_tpu_torch.tools import convert_checkpoint, convert_mano
+    t0 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    mano_src = Config().mano_model_path
+    w0 = time.perf_counter()
+    pkl = os.path.join(out_dir, "wild.pkl")
+    torch.save({"module." + k: torch.from_numpy(v).half() for k, v in
+                convert_checkpoint.stand_in_state_dict(seed=0).items()}, pkl)
+    pkl_dir = os.path.join(out_dir, "mano_pkl")
+    os.makedirs(pkl_dir, exist_ok=True)
+    committed = {}
+    for side in ("left", "right"):
+        with np.load(os.path.join(mano_src, f"mano_{side}.npz")) as z:
+            committed[side] = {k: z[k] for k in z.files}
+        with open(os.path.join(pkl_dir, f"MANO_{side.upper()}.pkl"), "wb") as f:
+            pickle.dump(convert_mano.reference_layout(committed[side]), f,
+                        protocol=2)
+    stand_in_s = time.perf_counter() - w0
+    frame = os.path.join(out_dir, "smoke_720p.jpg")
+    cv2.imwrite(frame, (np.random.RandomState(21).rand(*FRAME_HW, 3) * 255)
+                .astype(np.uint8))
+    out_mano = os.path.join(out_dir, "mano")
+    out_ckpt = os.path.join(out_dir, "wild.npz")
+    _reset_launch_counts()
+    w0 = time.perf_counter()
+    code, text = _run_module("acr_tpu_torch.tools.ingest_real_assets", [
+        "--mano_dir", pkl_dir, "--checkpoint", pkl, "--out_mano", out_mano,
+        "--out_ckpt", out_ckpt, "--smoke_image", frame,
+        "--smoke_output", os.path.join(out_dir, "smoke") + "/",
+        "--smoke_input_size", str(SIZE), "--device", "cuda"])
+    ingest_s = time.perf_counter() - w0
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    walls = _host_walls(text)
+    say("assets", f"ingest_real_assets --device cuda: exit {code} in "
+        f"{ingest_s:.3f} s (host wall; stand-ins built in {stand_in_s:.3f} s): "
+        f"MANO conversion {walls.get('ingest_mano')} s, checkpoint "
+        f"conversion {walls.get('ingest_checkpoint')} s, image-mode smoke at "
+        f"{SIZE} px on a {FRAME_HW[0]}x{FRAME_HW[1]} frame "
+        f"{walls.get('golden_smoke')} s; launches {launches} [{card}]")
+    if (code != 0 or "smoke-tested" not in text.strip().splitlines()[-1]
+            or not os.path.exists(os.path.join(out_dir, "smoke",
+                                               os.path.basename(frame)))):
+        raise AssertionError("assets: the ingest failed or skipped its smoke")
+    if not launches.get("raster_binned"):
+        raise AssertionError(f"assets: the ingest smoke never launched B1: "
+                             f"{launches}")
+    for side in ("left", "right"):
+        with np.load(os.path.join(out_mano, f"mano_{side}.npz")) as z:
+            for k in z.files:
+                if (z[k].dtype != committed[side][k].dtype
+                        or not np.array_equal(z[k], committed[side][k])):
+                    raise AssertionError(f"assets: mano_{side} {k} differs "
+                                         "from the committed array")
+    say("assets", "the converted MANO npz equal the committed ones on every "
+        "array the converter writes, both sides")
+
+    cfg = Config(input_size=SIZE, configs_yml="", model_path=out_ckpt,
+                 mano_model_path=out_mano)
+    meta = img_preprocess(cv2.imread(frame), None, SIZE)
+    gpu = {k: v.cpu() for k, v in ACRPipeline(cfg, device="cuda")(
+        meta["image"], meta["offsets"]).items()}
+    cpu = ACRPipeline(cfg, device="cpu")(meta["image"], meta["offsets"])
+    if not torch.equal(gpu["centers"], cpu["centers"]):
+        raise AssertionError("assets: device and CPU picked different centers")
+    errs = {k: float((gpu[k] - cpu[k]).abs().max())
+            for k in ("verts", "j3d", "pj2d")}
+    say("assets", f"card vs the CPU port on the converted npz, the smoke "
+        f"frame at {SIZE} px: max abs err {json.dumps(errs)} (tol 1e-4); "
+        f"detected {gpu['detection_flag'].tolist()}")
+    if max(errs.values()) > 1e-4 or not all(
+            torch.isfinite(gpu[k]).all() for k in errs):
+        raise AssertionError("assets: card and CPU disagree")
+
+    synth = os.path.join(out_dir, "synthetic", "wild.npz")
+    w0 = time.perf_counter()
+    code, _ = _run_module("acr_tpu_torch.tools.make_synthetic_checkpoint",
+                          ["--out", synth])
+    synth_s = time.perf_counter() - w0
+    cli_out = os.path.join(out_dir, "cli") + "/"
+    w0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "acr_tpu_torch.cli", "--demo_mode", "image",
+         "--inputs", frame, "--model_path", synth, "--configs_yml", "",
+         "--output_dir", cli_out], cwd=out_dir,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=TOOLS_TIMEOUT)
+    cli_s = time.perf_counter() - w0
+    written = os.listdir(cli_out) if os.path.isdir(cli_out) else []
+    say("assets", f"make_synthetic_checkpoint: exit {code} in {synth_s:.3f} s; "
+        f"python -m acr_tpu_torch.cli --demo_mode image --model_path <it>: "
+        f"exit {proc.returncode} in {cli_s:.3f} s, written {written} [{card}] "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if code != 0 or proc.returncode != 0 or written != [os.path.basename(frame)]:
+        raise AssertionError(f"assets: synthetic checkpoint or CLI:\n"
+                             f"{(proc.stdout + proc.stderr)[-3000:]}")
+    return launches["raster_binned"], synth, out_ckpt, frame
+
+
+def phase_tools(card, synth_npz, converted_npz, frame, out_dir):
+    """Three run tools on the card: profile_step at batch 8 (its table
+    must name mano_split_kernel; B4 counted from 0: the "profile_step"
+    path), dryrun_multichip(2) on two replicas of cuda:0 at 512 px (equal
+    to one replica bit for bit; it checks that itself), and
+    quant_accuracy for int8 and int8_pc at 512 px on the converted
+    stand-in weights, the smoke frame (``--image``) beside its synthetic
+    ones. Returns B4's launches in the profile run."""
+    from acr_tpu_torch.tools import dryrun
+    t0 = time.perf_counter()
+    _reset_launch_counts()
+    w0 = time.perf_counter()
+    code, text = _run_module("acr_tpu_torch.tools.profile_step", [
+        "--batch", str(CHUNK), "--iters", "5", "--top", "16",
+        "--model_path", synth_npz,
+        "--trace_dir", os.path.join(out_dir, "profile_step")])
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    say("tools", f"profile_step --batch {CHUNK}: exit {code} in "
+        f"{time.perf_counter() - w0:.3f} s; launches {launches} [{card}]")
+    if code != 0 or "mano_split_kernel" not in text:
+        raise AssertionError("tools: profile_step's table does not name "
+                             "mano_split_kernel")
+    if not launches.get("mano_fused"):
+        raise AssertionError(f"tools: profile_step never launched B4: "
+                             f"{launches}")
+    w0 = time.perf_counter()
+    out = dryrun.dryrun_multichip(2, SIZE, device="cuda",
+                                  model_path=synth_npz, render_size=SIZE)
+    say("tools", f"dryrun_multichip(2) on two replicas of cuda:0 at {SIZE} "
+        f"px: verts {out['verts'].shape}, equal to one replica bit for bit, "
+        f"in {time.perf_counter() - w0:.3f} s")
+    w0 = time.perf_counter()
+    code, text = _run_module("acr_tpu_torch.tools.quant_accuracy", [
+        "--modes", "int8", "int8_pc", "--input_size", str(SIZE),
+        "--model_path", converted_npz, "--image", frame, "--device", "cuda"])
+    say("tools", f"quant_accuracy --modes int8 int8_pc at {SIZE} px on the "
+        f"converted stand-in: exit {code} in {time.perf_counter() - w0:.3f} s "
+        f"[{card}] ({time.perf_counter() - t0:.1f} s)")
+    if code != 0 or "| int8/default |" not in text or \
+            "| int8_pc/frames |" not in text:
+        raise AssertionError("tools: quant_accuracy's table")
+    return launches["mano_fused"]
 
 
 def main():
@@ -2255,6 +2444,13 @@ def main():
     phase_cli(card, weights, frames_dir, os.path.join(out_dir, "cli"))
     say("dp", f"the dp, native and cli phases took "
         f"{time.perf_counter() - t_new:.1f} s")
+    t_new = time.perf_counter()
+    ingest_launches, synth_npz, converted_npz, frame = phase_assets(
+        card, os.path.join(out_dir, "assets"))
+    profile_launches = phase_tools(card, synth_npz, converted_npz, frame,
+                                   os.path.join(out_dir, "tools"))
+    say("tools", f"the assets and tools phases took "
+        f"{time.perf_counter() - t_new:.1f} s")
     device["mano_fused"] = tdevice[f"mano_fused_{CHUNK}"]
     # B4 at the throughput path's shape: 8 hands per launch
     bounds["mano_fused"] = mano_bound(CHUNK)
@@ -2292,6 +2488,9 @@ def main():
     # folder mode at b16 on 2 replicas of one card, counted from 0
     binned["paths"]["dp"] = dp_launches["raster_binned"]
     mano["paths"]["dp"] = dp_launches["mano_fused"]
+    # the ingest smoke (image mode, 512 px) and profile_step at b8
+    binned["paths"]["ingest"] = ingest_launches
+    mano["paths"]["profile_step"] = profile_launches
     binned["scenes"] = {
         name: {"ms": r["ms"][0], "device_ms": r["device_ms"],
                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],

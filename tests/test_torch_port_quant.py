@@ -27,7 +27,7 @@ import jax.numpy as jnp
 from acr_tpu.io.params import flatten_params, unflatten_params
 from acr_tpu.ops import quant as jq
 from acr_tpu_torch.config import Config
-from acr_tpu_torch.io.params import from_flax, init_params
+from acr_tpu_torch.io.params import from_flax, init_params, to_flax
 from acr_tpu_torch.models.acr import ACRNet
 from acr_tpu_torch.ops import quant as tq
 from acr_tpu_torch.pipeline.infer import ACRPipeline
@@ -36,20 +36,6 @@ from acr_tpu_torch.pipeline.preprocess import img_preprocess
 torch.set_num_threads(2)
 MANO_DIR = os.path.join(os.path.dirname(__file__), "..", "model_data", "mano")
 MODES = ("int8", "int8_pc", "int8_r", "int4w")
-
-
-def to_flax(state_dict):
-    """The inverse of ``from_flax`` for a float state dict: {flax path:
-    array}, conv kernels OIHW -> HWIO, Dense (out, in) -> (in, out)."""
-    flat = {}
-    for key, value in state_dict.items():
-        parts = key.split(".")
-        leaf, arr = parts[-1], value.numpy()
-        if leaf == "weight":
-            leaf = "kernel"
-            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
-        flat["/".join(parts[:-1] + [leaf])] = np.ascontiguousarray(arr)
-    return flat
 
 
 def jax_stats(stats):
