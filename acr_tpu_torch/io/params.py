@@ -22,13 +22,14 @@ The other way: ``flax_paths`` lists the flax paths and shapes of the
 canonical network (JAX's ``enumerate_flax_paths``, read from the port's
 ``ACRNet`` on the meta device), ``to_flax`` turns a state dict back into
 flax leaves, and ``save_params_npz`` writes the npz JAX's
-``save_params_npz`` writes.
+``save_params_npz`` writes, atomically (``savez_atomic``).
 """
 
 from __future__ import annotations
 
 import math
 import os
+import uuid
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -123,7 +124,25 @@ def save_params_npz(path: str, state_dict: Dict[str, torch.Tensor],
             merge_params["weight"].detach().cpu().numpy().T)
         flat["parser/fusion_fc/bias"] = \
             merge_params["bias"].detach().cpu().numpy()
-    np.savez(path, **flat)
+    savez_atomic(path, flat)
+
+
+def savez_atomic(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    """``np.savez(path, **arrays)`` into a temporary file beside ``path``,
+    then ``os.replace`` onto it: a reader, or another process writing the
+    same file, sees the old file or the whole new one, never a part. The
+    temporary name is unique and ends in ``.npz``, so ``np.savez`` keeps
+    it; the file is created as ``np.savez`` creates any. As with
+    ``np.savez``, a ``path`` without the suffix gets ``.npz``."""
+    if not path.endswith(".npz"):
+        path += ".npz"
+    tmp = f"{path}.{uuid.uuid4().hex}.tmp.npz"
+    try:
+        np.savez(tmp, **arrays)
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
 
 
 def from_flax(flat: Dict[str, np.ndarray],

@@ -30,7 +30,7 @@ import sys
 
 import numpy as np
 
-from acr_tpu_torch.io.params import flax_paths
+from acr_tpu_torch.io.params import flax_paths, savez_atomic
 from acr_tpu_torch.io.torch_names import map_flax_path
 
 
@@ -218,7 +218,7 @@ def main(argv=None):
     if unused:
         print(f"unused torch keys ({len(unused)}), e.g.:",
               *unused[:10], sep="\n  ")
-    np.savez(args.out, **flat)
+    savez_atomic(args.out, flat)
     print(f"wrote {args.out}")
 
 

@@ -31,6 +31,8 @@ import sys
 
 import numpy as np
 
+from acr_tpu_torch.io.params import savez_atomic
+
 
 class _ChumpyStub:
     """Placeholder for chumpy objects; captures pickled state."""
@@ -132,7 +134,7 @@ def main(argv=None):
             continue
         out = convert(src, side)
         dst = os.path.join(args.out_dir, f"mano_{side}.npz")
-        np.savez(dst, **out)
+        savez_atomic(dst, out)
         print(f"wrote {dst}")
 
 

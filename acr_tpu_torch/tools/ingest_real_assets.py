@@ -47,6 +47,7 @@ from typing import Optional
 import numpy as np
 
 from acr_tpu_torch.config import _REPO_ROOT
+from acr_tpu_torch.io.params import savez_atomic
 
 # MANO tensor contract (reference: mano/manolayer.py:350-394; the
 # runtime loader acr_tpu_torch/models/mano.py)
@@ -92,7 +93,7 @@ def ingest_mano(mano_dir: str, out_dir: str) -> int:
                 errors += 1
             print(f"  {key:18s} {str(got):16s} {out[key].dtype}  {status}")
         dst = os.path.join(out_dir, f"mano_{side}.npz")
-        np.savez(dst, **out)
+        savez_atomic(dst, out)
         print(f"  -> {dst}")
     return errors
 
@@ -134,7 +135,7 @@ def ingest_checkpoint(ckpt_path: str, out_path: str,
             errors += 1
     if not errors:
         os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
-        np.savez(out_path, **flat)
+        savez_atomic(out_path, flat)
         print(f"  -> {out_path}")
     return errors
 

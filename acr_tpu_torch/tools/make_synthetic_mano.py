@@ -127,10 +127,12 @@ def make_assets(side: str, seed: int = 0) -> dict:
 
 
 def write_assets(out_dir: str, seed: int = 0) -> None:
+    """Both sides' npz in ``out_dir``, each written atomically."""
+    from acr_tpu_torch.io.params import savez_atomic
     os.makedirs(out_dir, exist_ok=True)
     for side in ("left", "right"):
-        np.savez(os.path.join(out_dir, f"mano_{side}.npz"),
-                 **make_assets(side, seed))
+        savez_atomic(os.path.join(out_dir, f"mano_{side}.npz"),
+                     make_assets(side, seed))
 
 
 def main(argv=None):

@@ -40,7 +40,12 @@ frames made from a seed:
   committed MANO assets and the card against the CPU port, then
   ``make_synthetic_checkpoint`` and the CLI on its npz; and the run tools
   (``phase_tools``): ``profile_step`` at batch 8, ``dryrun_multichip(2)``
-  and ``quant_accuracy`` for int8 and int8_pc.
+  and ``quant_accuracy`` for int8 and int8_pc;
+- the stream tools (``phase_stream_tools``) on the realistic two-hand
+  scene of ``tools.stream_setup`` (the scene the JAX tools measure):
+  ``precision_ladder`` (fp32, bf16, int8 at render 512 and fp32 at
+  2048), ``profile_stream`` at render 2048 (B3) and 512 (B1) and
+  ``stream_bench``; the scene's step on the card against the CPU port.
 It checks them against the port's own CPU run, and times the steps, the
 loop, the chunk step, folder mode and the kernels: each kernel by CUDA
 events around back-to-back calls (``ms``) and alone on the device, as
@@ -101,10 +106,8 @@ def say(phase, msg):
 
 
 def card_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    from acr_tpu_torch.utils.device import card_line
+    return card_line("cuda")
 
 
 def cuda_ms(fn, iters=20, reps=5, warmup=3):
@@ -2390,6 +2393,132 @@ def phase_tools(card, synth_npz, converted_npz, frame, out_dir):
     return launches["mano_fused"]
 
 
+def _port_kernel_rows(text):
+    """{kernel: (launches, ms)} from a profile table's "the port's
+    kernels" section."""
+    import re
+    from acr_tpu_torch.tools.profile_step import PORT_KERNELS
+    rows, section = {}, False
+    for line in text.splitlines():
+        if line.startswith("#"):
+            section = line.startswith("# the port's kernels")
+            continue
+        m = re.match(r"\s*([0-9.]+)\s+[0-9.]+\s+(\d+)\s+(.*)", line)
+        names = [k for k in PORT_KERNELS if m and k in m.group(3)]
+        if section and names:
+            rows[names[0]] = (int(m.group(2)), float(m.group(1)))
+    return rows
+
+
+def phase_stream_tools(card, synth_npz, out_dir):
+    """The stream tools on the card, in-process (``python -m``):
+    ``precision_ladder --iters 10 --reps 3 --with_2048`` (JAX's 16 keys,
+    each finite and > 0), ``profile_stream`` at render 2048 and 512 (5
+    steps each; the tables must name B3 and B1, and ``--reuse`` of the 512
+    trace must give the capture's kernel rows) and ``stream_bench --frames
+    20``, on the synthetic npz. B1, B2 and B3 are counted from 0 over the
+    tools' runs: the "stream tools" path. Then the realistic scene's probe
+    at 512 and 2048 px, and one fp32 scene step on the card against the
+    port on the CPU. Returns the counts."""
+    import numpy as np
+    import torch
+    from acr_tpu_torch.tools import stream_setup
+    from acr_tpu_torch.tools.precision_ladder import variants
+    from acr_tpu_torch.viz import raster_cuda as rc
+    from acr_tpu_torch.viz.visualizer import Visualizer
+    t0 = time.perf_counter()
+    _reset_launch_counts()
+    w0 = time.perf_counter()
+    code, text = _run_module("acr_tpu_torch.tools.precision_ladder", [
+        "--iters", "10", "--reps", "3", "--with_2048",
+        "--model_path", synth_npz])
+    ladder = json.loads(text.strip().splitlines()[-1])
+    # JAX's keys: four per variant
+    values = {}
+    for name, kw in variants(True):
+        tag = kw.get("tag", "")
+        for key in (f"stream_step_ms_b1{tag}", f"stream_step_ms_b1{tag}_p50",
+                    f"stream_step_ms_b1{tag}_p90", f"stream_readback_ms{tag}"):
+            values[key] = ladder[name].get(key)
+    say("stream_tools", f"precision_ladder --iters 10 --reps 3 --with_2048: "
+        f"exit {code} in {time.perf_counter() - w0:.3f} s: "
+        f"{json.dumps(values)} [{ladder['card']}]")
+    if code != 0 or len(values) != 16 or not all(
+            isinstance(v, float) and np.isfinite(v) and v > 0
+            for v in values.values()):
+        raise AssertionError(f"stream_tools: the ladder's 16 keys: {values}")
+    tables = {}
+    for size, kernel in ((HI, "raster_banded_kernel"),
+                         (SIZE, "raster_binned_kernel")):
+        trace_dir = os.path.join(out_dir, f"profile_stream_{size}")
+        argv = ["--render_size", str(size), "--iters", "5", "--top", "12",
+                "--model_path", synth_npz, "--trace_dir", trace_dir]
+        w0 = time.perf_counter()
+        code, text = _run_module("acr_tpu_torch.tools.profile_stream", argv)
+        tables[size] = _port_kernel_rows(text)
+        say("stream_tools", f"profile_stream --render_size {size} --iters 5: "
+            f"exit {code} in {time.perf_counter() - w0:.3f} s; the port's "
+            f"kernels {tables[size]}")
+        if code != 0 or kernel not in tables[size]:
+            raise AssertionError(f"stream_tools: profile_stream at {size} px "
+                                 f"does not name {kernel}")
+    w0 = time.perf_counter()
+    code, text = _run_module("acr_tpu_torch.tools.stream_bench",
+                             ["--frames", "20", "--model_path", synth_npz])
+    say("stream_tools", f"stream_bench --frames 20: exit {code} in "
+        f"{time.perf_counter() - w0:.3f} s")
+    if code != 0 or not text.strip().splitlines()[-1].startswith("20 frames"):
+        raise AssertionError("stream_tools: stream_bench's line")
+    launches = {k: rc.LAUNCHES[k] for k in
+                ("raster_binned", "raster_flat", "raster_banded")}
+    say("stream_tools", f"launches over the tools' runs: {launches}")
+    if not (launches["raster_binned"] and launches["raster_banded"]):
+        raise AssertionError(f"stream_tools: B1 and B3 must launch: "
+                             f"{launches}")
+
+    code, text = _run_module("acr_tpu_torch.tools.profile_stream", [
+        "--reuse", "--render_size", str(SIZE), "--iters", "5", "--top", "12",
+        "--trace_dir", os.path.join(out_dir, f"profile_stream_{SIZE}")])
+    reused = _port_kernel_rows(text)
+    if code != 0 or reused.keys() != tables[SIZE].keys() or any(
+            reused[k][0] != tables[SIZE][k][0]
+            or abs(reused[k][1] - tables[SIZE][k][1]) > 0.002
+            for k in reused):
+        raise AssertionError(f"stream_tools: --reuse rows {reused} differ "
+                             f"from the capture's {tables[SIZE]}")
+    say("stream_tools", "profile_stream --reuse of the 512 px trace: the "
+        "capture's kernel rows")
+
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        app, step, _, uploads, _ = stream_setup.stream_step_setup(
+            device=dev, model_path=synth_npz)
+        (image, offsets), = uploads(1)
+        outs[dev] = {k: v.cpu() for k, v in
+                     step({"image": image, "offsets": offsets}).items()}
+    gpu, cpu = outs["cuda"], outs["cpu"]
+    probes = {}
+    for size in (SIZE, HI):
+        viz = Visualizer(dataclasses.replace(app.cfg, render_size=size),
+                         app.pipeline.faces, device="cuda")
+        probes[size] = viz.overflow_probe_device(
+            {k: v.cuda() for k, v in gpu.items()}).tolist()
+    errs = {k: float((gpu[k] - cpu[k]).abs().max())
+            for k in ("verts", "j3d", "pj2d")}
+    say("stream_tools", f"the realistic scene: probe [max faces/tile, tiles "
+        f"over, max faces/band, bands over] {probes[SIZE]} at {SIZE} px, "
+        f"{probes[HI]} at {HI} px; detected "
+        f"{gpu['detection_flag'].tolist()}; one fp32 step, card vs the CPU "
+        f"port: max abs err {json.dumps(errs)} (tol 1e-4)")
+    if (not torch.equal(gpu["centers"], cpu["centers"])
+            or not torch.equal(gpu["detection_flag"], cpu["detection_flag"])
+            or max(errs.values()) > 1e-4):
+        raise AssertionError("stream_tools: card and CPU disagree")
+    say("stream_tools", f"the stream tools phase took "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "acr_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -2451,6 +2580,8 @@ def main():
                                    os.path.join(out_dir, "tools"))
     say("tools", f"the assets and tools phases took "
         f"{time.perf_counter() - t_new:.1f} s")
+    stream_tool_launches = phase_stream_tools(
+        card, synth_npz, os.path.join(out_dir, "stream_tools"))
     device["mano_fused"] = tdevice[f"mano_fused_{CHUNK}"]
     # B4 at the throughput path's shape: 8 hands per launch
     bounds["mano_fused"] = mano_bound(CHUNK)
@@ -2497,17 +2628,19 @@ def main():
                "max_faces_per_tile": r["max"], "tiles_over_cap": r["over"],
                "folded_pairs": r["pairs"], "flat_device_ms": r["flat_device_ms"]}
         for name, r in b1.items()}
-    print(json.dumps({"kernels": [
-        entry("raster_flat", "acr_tpu/viz/raster_pallas.py:106", src,
-              flat_hi["launches"],
-              max(kin["flat_err"], serpentine_flat_err, flat_hi["err"]),
-              flat_hi["ms"], flat_hi["plain_ms"], None),
-        binned,
-        entry("raster_banded", "acr_tpu/viz/raster_pallas.py:298", src,
-              stream_launches["raster_banded"], max(banded_err, stream_err),
-              stimes["raster_banded"], stimes["raster_banded_plain"], None),
-        mano,
-    ]}), flush=True)
+    flat = entry("raster_flat", "acr_tpu/viz/raster_pallas.py:106", src,
+                 flat_hi["launches"],
+                 max(kin["flat_err"], serpentine_flat_err, flat_hi["err"]),
+                 flat_hi["ms"], flat_hi["plain_ms"], None)
+    banded = entry("raster_banded", "acr_tpu/viz/raster_pallas.py:298", src,
+                   stream_launches["raster_banded"],
+                   max(banded_err, stream_err), stimes["raster_banded"],
+                   stimes["raster_banded_plain"], None)
+    # the stream tools' runs (ladder, profile_stream, stream_bench), from 0
+    for e in (flat, binned, banded):
+        e.setdefault("paths", {})["stream tools"] = \
+            stream_tool_launches[e["name"]]
+    print(json.dumps({"kernels": [flat, binned, banded, mano]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
