@@ -5,7 +5,8 @@ which stays in the repository); imports ``torch`` and never ``jax``.
 
 Layout:
   config    — typed dataclass config + YAML overlay + CLI (copy of acr_tpu.config)
-  io        — flax-path checkpoints -> state dicts, seeded init, writers,
+  io        — flax-path checkpoints (npz, or orbax directories read and
+              written without orbax) -> state dicts, seeded init, writers,
               the ctypes bridge to the host C++ library (native/)
   models    — HRNet backbone, ACR heads and part module, MANO
   ops       — rotation math, the fused MANO kernel's wrapper, the CUDA

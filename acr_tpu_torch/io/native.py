@@ -58,6 +58,17 @@ def build_library() -> str:
     return so
 
 
+def available() -> bool:
+    """Whether the library builds and loads here: a query, which never
+    raises (JAX's ``available``). The paths that need the library call
+    ``library()``, which raises."""
+    try:
+        library()
+    except RuntimeError:
+        return False
+    return True
+
+
 def library() -> ctypes.CDLL:
     """The loaded library, built at first use. Raises RuntimeError when
     it cannot be built or loaded."""

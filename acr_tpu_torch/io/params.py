@@ -23,6 +23,12 @@ canonical network (JAX's ``enumerate_flax_paths``, read from the port's
 ``ACRNet`` on the meta device), ``to_flax`` turns a state dict back into
 flax leaves, and ``save_params_npz`` writes the npz JAX's
 ``save_params_npz`` writes, atomically (``savez_atomic``).
+
+Checkpoints on disk are an npz of flax paths or an orbax directory
+(``io/orbax.py``); ``load_params`` takes either, as JAX's does, and
+``flatten_params`` / ``unflatten_params`` / ``load_params_npz`` /
+``save_params_orbax`` / ``load_params_orbax`` are JAX's functions on
+numpy trees.
 """
 
 from __future__ import annotations
@@ -30,13 +36,72 @@ from __future__ import annotations
 import math
 import os
 import uuid
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from acr_tpu_torch.io import orbax as _orbax
+
 PARSER_PREFIX = "parser/"
+
+
+def flatten_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Nested {'params': {...}} tree -> {'a/b/c': array} (the params level
+    stripped), as JAX's ``flatten_params``. Leaves become numpy arrays; a
+    torch tensor (an orbax tree's bf16 leaf) stays as it is."""
+    tree = params.get("params", params)
+    flat = {}
+
+    def rec(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                rec(prefix + (k,), v)
+        else:
+            flat["/".join(prefix)] = (node if isinstance(node, torch.Tensor)
+                                      else np.asarray(node))
+
+    rec((), tree)
+    return flat
+
+
+def unflatten_params(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{'a/b/c': array} -> {'params': nested dict}, the leaves kept as
+    they are (JAX's makes them jnp arrays)."""
+    root: Dict[str, Any] = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return {"params": root}
+
+
+def load_params_npz(path: str) -> Dict[str, Any]:
+    """An npz of flax paths -> {'params': nested dict of numpy arrays}."""
+    with np.load(path) as data:
+        return unflatten_params({k: data[k] for k in data.files})
+
+
+def save_params_orbax(path: str, params: Dict[str, Any]) -> None:
+    """Write a params tree as an orbax checkpoint directory that JAX's
+    ``load_params_orbax`` (and ``load_params_orbax`` here) reads back to
+    the same leaves: normalized to a {'params': ...} tree as JAX's
+    ``save_params_orbax`` does, and replacing an existing checkpoint.
+    The layout is orbax's without OCDBT (``io.orbax.save_orbax``), where
+    JAX's orbax writes OCDBT."""
+    flat = flatten_params(params)
+    _orbax.save_orbax(path, {("params",) + tuple(k.split("/")): v
+                             for k, v in flat.items()})
+
+
+def load_params_orbax(path: str) -> Dict[str, Any]:
+    """An orbax checkpoint directory -> {'params': nested dict}: the leaves
+    of JAX's ``load_params_orbax``, as numpy arrays, a bf16 leaf as a
+    torch.bfloat16 tensor (``io.orbax.load_orbax``)."""
+    return unflatten_params(flatten_params(_orbax.load_orbax(path)))
 
 
 def _reference_net(net: Optional[nn.Module]) -> nn.Module:
@@ -187,17 +252,19 @@ def from_flax(flat: Dict[str, np.ndarray],
 
 
 def load_params(path: str, net: Optional[nn.Module] = None):
-    """npz of flax paths -> (state dict, merge-mode fusion head or None).
-
-    The JAX package also reads an orbax checkpoint directory
-    (``acr_tpu/io/params.py:78-83``); the port does not."""
+    """A checkpoint of flax paths -> (state dict, merge-mode fusion head
+    or None). ``path`` is an npz file or, as JAX's ``load_params`` takes
+    it (``acr_tpu/io/params.py:78-83``), an orbax checkpoint directory
+    (``load_params_orbax``); both go through the same ``split_parser``
+    and ``from_flax``."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"not ported to acr_tpu_torch yet: model_path={path!r} is a "
-            "directory (an orbax checkpoint); the port reads npz files of "
-            "flax paths: ROADMAP C5")
-    with np.load(path) as data:
-        flat = {k: data[k] for k in data.files}
+        flat = flatten_params(load_params_orbax(path))
+    else:
+        with np.load(path) as data:
+            flat = {k: data[k] for k in data.files}
+    # a bf16 leaf of an orbax tree widens to fp32 exactly
+    flat = {k: v.float().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in flat.items()}
     net_flat, fusion = split_parser(flat)
     return from_flax(net_flat, net), fusion
 

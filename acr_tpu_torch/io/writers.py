@@ -1,8 +1,10 @@
 """Host IO: image/video collection, frame splitting, result persistence.
 
-Copies of the functions of ``acr_tpu/io/writers.py`` that the four demo
-modes use (reference: acr/utils.py:110-141, 1393-1448); cv2 is imported
-inside the functions that need it.
+Copies of the functions of ``acr_tpu/io/writers.py``: those the four
+demo modes use (reference: acr/utils.py:110-141, 1393-1448) and the
+library's exports (npz, JSON, YAML, OBJ, HDF5). cv2, yaml and h5py are
+imported inside the functions that need them; ``save_h5`` returns None
+where h5py is missing, as JAX's does.
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ from __future__ import annotations
 import os
 import pickle
 from typing import Dict, List, Optional
+
+import numpy as np
 
 # the reference's extension list (acr/utils.py:31-32): 19 unique
 # extensions after dropping its redundant uppercase duplicates —
@@ -96,3 +100,74 @@ def save_results(tag: str, output_dir: str, results_dict: Dict) -> str:
     with open(out, "wb") as f:
         pickle.dump(results_dict, f)
     return out
+
+
+def save_npz_results(path: str, results_dict: Dict) -> str:
+    # object arrays are pickled by default; np.savez has no allow_pickle
+    # kwarg (passing one would be saved as a spurious array entry)
+    np.savez(path, results=np.asarray([results_dict], dtype=object))
+    return path
+
+
+def save_json(path: str, obj) -> str:
+    import json
+
+    def default(o):
+        if isinstance(o, np.ndarray):
+            return o.tolist()
+        if isinstance(o, (np.floating, np.integer)):
+            return o.item()
+        raise TypeError(type(o))
+
+    with open(path, "w") as f:
+        json.dump(obj, f, default=default)
+    return path
+
+
+def save_yaml(path: str, obj) -> str:
+    import yaml
+    with open(path, "w") as f:
+        yaml.safe_dump(obj, f)
+    return path
+
+
+def save_obj(path: str, verts: np.ndarray, faces: np.ndarray) -> str:
+    """Export a mesh as Wavefront OBJ (1-indexed faces).
+
+    verts (V, 3), faces (F, 3) — e.g. a MANO hand (778/1538).
+    """
+    verts = np.asarray(verts, np.float32)
+    faces = np.asarray(faces, np.int64) + 1
+    with open(path, "w") as f:
+        for v in verts:
+            f.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
+        for tri in faces:
+            f.write(f"f {tri[0]} {tri[1]} {tri[2]}\n")
+    return path
+
+
+def load_obj(path: str):
+    """Read an OBJ written by save_obj -> (verts (V,3), faces (F,3) 0-idx)."""
+    verts, faces = [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            if parts[0] == "v":
+                verts.append([float(x) for x in parts[1:4]])
+            elif parts[0] == "f":
+                faces.append([int(p.split("/")[0]) - 1 for p in parts[1:4]])
+    return np.asarray(verts, np.float32), np.asarray(faces, np.int32)
+
+
+def save_h5(path: str, arrays: Dict[str, np.ndarray]) -> Optional[str]:
+    """HDF5 result export; returns None when h5py is unavailable."""
+    try:
+        import h5py
+    except ImportError:
+        return None
+    with h5py.File(path, "w") as f:
+        for key, value in arrays.items():
+            f.create_dataset(key, data=np.asarray(value))
+    return path

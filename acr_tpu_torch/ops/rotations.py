@@ -10,7 +10,9 @@ and MANO call, with the same numerical contracts:
 * rotmat -> axis-angle keeps the kornia-derived branch logic with its
   eps=1e-6 branch selection, and zeroes NaNs (acr/utils.py:359, 773-906).
 
-All functions take any leading batch dims and branch on no tensor value.
+All functions take any leading batch dims and branch on no tensor value,
+except ``transform_rot_representation``, JAX's host converter through
+scipy (a copy).
 """
 
 from __future__ import annotations
@@ -131,3 +133,38 @@ def rot6d_to_axis_angle(rot6d: torch.Tensor) -> torch.Tensor:
     k = rot6d.shape[-1] // 6
     mats = rot6d_to_rotmat(rot6d.reshape(lead + (k, 6)))
     return rotmat_to_axis_angle(mats).reshape(lead + (k * 3,))
+
+
+def transform_rot_representation(rot, input_type: str = "mat",
+                                 out_type: str = "vec",
+                                 euler_degrees: bool = False):
+    """Host-side conversion between rotation representations via scipy.
+
+    Types: 'mat' (3x3), 'quat' (xyzw), 'vec' (rotation vector),
+    'euler' (intrinsic xyz). Covers the capability of the reference's
+    converter (acr/utils.py:521-549) with one deliberate change: euler
+    units are explicit via ``euler_degrees`` — the reference guesses
+    degrees-vs-radians from magnitude (``rot.max() < 4``), silently
+    rescaling genuine small-degree inputs.
+    """
+    import numpy as np
+    from scipy.spatial.transform import Rotation as R
+    rot = np.asarray(rot)
+    loaders = {
+        "mat": R.from_matrix,
+        "quat": R.from_quat,
+        "vec": R.from_rotvec,
+        "euler": lambda a: R.from_euler("xyz", a, degrees=euler_degrees),
+    }
+    if input_type not in loaders:
+        raise ValueError(f"unknown input_type: {input_type}")
+    r = loaders[input_type](rot)
+    writers = {
+        "mat": r.as_matrix,
+        "quat": r.as_quat,
+        "vec": r.as_rotvec,
+        "euler": lambda: r.as_euler("xyz", degrees=euler_degrees),
+    }
+    if out_type not in writers:
+        raise ValueError(f"unknown out_type: {out_type}")
+    return writers[out_type]()

@@ -73,8 +73,7 @@ def check_slice(cfg: Config) -> None:
     """Every option value of ``Config`` runs in the port, so nothing
     raises here. The TPU layout rewrites (``s2d_*``, ``merged_heads``)
     are not options of the port: it builds the canonical network
-    whatever they say. An orbax ``model_path`` raises in
-    ``io.params.load_params`` (ROADMAP C5)."""
+    whatever they say."""
 
 
 def set_fp32_math() -> None:
@@ -227,7 +226,8 @@ class ACRPipeline:
 
     ``params`` is a float state dict of the canonical ACRNet
     (``init_params`` or ``io.params.from_flax``); None loads
-    ``cfg.model_path``, an npz of flax paths. ``merge_params`` is the
+    ``cfg.model_path``, an npz of flax paths or an orbax checkpoint
+    directory (``io.params.load_params``). ``merge_params`` is the
     merge-mode fusion head, kept in fp32. ``device`` is ``cuda`` unless the
     caller asks for the CPU; without a card a CUDA device raises. Under
     ``cfg.data_parallel > 1``, ``devices`` names this process's replica

@@ -100,6 +100,25 @@ def rasterize(verts_screen: torch.Tensor, faces: torch.Tensor,
     return raster_cuda._finish(fid, b0, b1, None, with_attrs=False)
 
 
+def shade(face_id: torch.Tensor, bary: torch.Tensor, faces: torch.Tensor,
+          normals: torch.Tensor, face_colors: torch.Tensor,
+          ambient: float = 0.3, directional: float = 1.5) -> torch.Tensor:
+    """Lambert shading by per-pixel gathers -> (H, W, 4) RGBA in [0, 1];
+    alpha = coverage. ``face_id`` (H, W), ``bary`` (H, W, 3), ``faces``
+    (F, 3), ``normals`` (V, 3), ``face_colors`` (F, 3). The counterpart of
+    JAX's ``shade``; the render path shades from the kernels' attribute
+    planes (``shade_from_attrs``) instead."""
+    safe_id = torch.clamp(face_id, min=0)
+    tri_n = normals[faces[safe_id]]                    # (H, W, 3, 3)
+    n = torch.einsum("hwk,hwkc->hwc", bary, tri_n)
+    n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True), min=1e-12)
+    lambert = torch.clamp(-n[..., 2], min=0.0)
+    intensity = torch.clamp(ambient + directional * lambert, 0.0, 1.0)
+    rgb = face_colors[safe_id] * intensity[..., None]
+    alpha = (face_id >= 0).to(rgb.dtype)
+    return torch.cat([rgb * alpha[..., None], alpha[..., None]], dim=-1)
+
+
 def shade_from_attrs(face_id: torch.Tensor,
                      bary_planes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
                      attr_planes: torch.Tensor, ambient: float = 0.3,

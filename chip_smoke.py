@@ -45,7 +45,12 @@ frames made from a seed:
   scene of ``tools.stream_setup`` (the scene the JAX tools measure):
   ``precision_ladder`` (fp32, bf16, int8 at render 512 and fp32 at
   2048), ``profile_stream`` at render 2048 (B3) and 512 (B1) and
-  ``stream_bench``; the scene's step on the card against the CPU port.
+  ``stream_bench``; the scene's step on the card against the CPU port;
+- orbax checkpoint directories (``phase_orbax``): the committed OCDBT
+  fixture ``tests/golden/orbax_small`` decoded through the system's
+  libzstd against its npz, and the image path at 512 px served from the
+  port's ``save_params_orbax`` directory, bit for bit against the npz
+  route, with both routes' load times.
 It checks them against the port's own CPU run, and times the steps, the
 loop, the chunk step, folder mode and the kernels: each kernel by CUDA
 events around back-to-back calls (``ms``) and alone on the device, as
@@ -2519,6 +2524,121 @@ def phase_stream_tools(card, synth_npz, out_dir):
     return launches
 
 
+# ---- orbax checkpoint directories ----
+ORBAX_FIXTURE = os.path.join("tests", "golden", "orbax_small")
+N_LOADS = 3                   # timed load_params calls per route
+
+
+def _same_output(got, want, what):
+    """Two host output dicts equal bit for bit (keys, dtypes, bytes)."""
+    import numpy as np
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: keys {sorted(got)} != {sorted(want)}")
+    for k, w in want.items():
+        g = np.asarray(got[k])
+        w = np.asarray(w)
+        if g.dtype != w.dtype or g.shape != w.shape or g.tobytes() != w.tobytes():
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def phase_orbax(card, out_dir):
+    """Orbax checkpoint directories on the card, with nothing of orbax,
+    tensorstore or JAX: the committed OCDBT fixture (written by
+    ``acr_tpu.io.params.save_params_orbax``, zstd nodes and chunks) read
+    through the system's libzstd against its npz, bit for bit; then the
+    main path's full-width "near" weights written by the port's
+    ``save_params_npz`` and ``save_params_orbax``, ``load_params`` timed on
+    both, and ``ACRApp`` image mode at 512 px on one 720p frame from each
+    route. B1 is counted from 0 over the orbax route's frame (the "orbax"
+    path); its outputs must equal the npz route's bit for bit. Returns
+    B1's launches there."""
+    import numpy as np
+    import torch
+    from acr_tpu_torch.config import Config
+    from acr_tpu_torch.io import orbax as ox
+    from acr_tpu_torch.io.params import (flatten_params, load_params,
+                                         load_params_orbax, save_params_npz,
+                                         save_params_orbax, to_flax,
+                                         unflatten_params)
+    from acr_tpu_torch.pipeline.app import ACRApp
+    t0 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    fixture = os.path.join(ROOT, ORBAX_FIXTURE)
+    lib = ox.zstd_library()
+    w0 = time.perf_counter()
+    got = flatten_params(load_params_orbax(fixture))
+    fixture_s = time.perf_counter() - w0
+    with np.load(fixture + ".npz") as z:
+        bf16 = set(z["bfloat16_leaves"].tolist())
+        want = {k: z[k] for k in z.files if k != "bfloat16_leaves"}
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"orbax: fixture leaves {sorted(got)}")
+    for k, w in want.items():
+        g = (got[k].view(torch.int16).numpy().view(np.uint16) if k in bf16
+             else got[k])
+        if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError(f"orbax: fixture leaf {k} differs from the npz")
+    n_files = sum(len(f) for _, _, f in os.walk(fixture))
+    say("orbax", f"the committed OCDBT fixture ({n_files} files, {len(want)} "
+        f"leaves: fp32, bf16, int8, int32, bool, 0-d) read through libzstd "
+        f"{lib.ZSTD_versionNumber()} in {fixture_s:.4f} s: every leaf equals "
+        f"{ORBAX_FIXTURE}.npz bit for bit")
+
+    weights = _weights(CAM_SCALE["near"])
+    paths = {"npz": os.path.join(out_dir, "served.npz"),
+             "orbax": os.path.join(out_dir, "served_orbax")}
+    w0 = time.perf_counter()
+    save_params_npz(paths["npz"], weights)
+    save_s = {"npz": time.perf_counter() - w0}
+    w0 = time.perf_counter()
+    save_params_orbax(paths["orbax"], unflatten_params(to_flax(weights)))
+    save_s["orbax"] = time.perf_counter() - w0
+    load_s = {}
+    for route, path in paths.items():
+        load_s[route] = []
+        for _ in range(N_LOADS):
+            w0 = time.perf_counter()
+            loaded, _ = load_params(path)
+            load_s[route].append(time.perf_counter() - w0)
+        if sorted(loaded) != sorted(weights) or not all(
+                torch.equal(loaded[k], weights[k]) for k in weights):
+            raise AssertionError(f"orbax: the {route} route loads other weights")
+    size = {r: (os.path.getsize(p) if r == "npz" else sum(
+        os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(p)
+        for f in fs)) for r, p in paths.items()}
+    say("orbax", "full-width weights: " + "; ".join(
+        f"{r} {size[r] / 1e6:.1f} MB written in {save_s[r]:.3f} s, "
+        f"load_params {json.dumps([round(t, 4) for t in load_s[r]])} s"
+        for r in paths) + f" (host wall) [{card}]")
+
+    frame = (np.random.RandomState(31).rand(*FRAME_HW, 3) * 255).astype(
+        np.uint8)
+    outs, launches, build_s = {}, {}, {}
+    for route, path in paths.items():
+        cfg = Config(input_size=SIZE, render_size=SIZE, configs_yml="",
+                     centermap_conf_thresh=-1e9, model_path=path,
+                     output_dir=os.path.join(out_dir, route) + "/")
+        w0 = time.perf_counter()
+        app = ACRApp(cfg, device="cuda")
+        torch.cuda.synchronize()
+        build_s[route] = time.perf_counter() - w0
+        _reset_launch_counts()
+        app.process_frame(frame, f"{route}_720p.jpg")
+        torch.cuda.synchronize()
+        launches[route] = {k: v for k, v in _launch_counts().items() if v}
+        outs[route] = app.last_output
+        del app
+    _check_image_outs([outs["orbax"]], launches["orbax"], "orbax")
+    _same_output(outs["orbax"], outs["npz"], "orbax vs npz")
+    say("orbax", f"ACRApp image mode, {SIZE} px, one {FRAME_HW[0]}x"
+        f"{FRAME_HW[1]} frame: the orbax route's outputs ({len(outs['npz'])} "
+        f"arrays, _rgba included) equal the npz route's bit for bit; "
+        f"launches {launches['orbax']}; ACRApp built in "
+        + ", ".join(f"{r} {build_s[r]:.3f} s" for r in paths)
+        + f" [{card}] ({time.perf_counter() - t0:.1f} s)")
+    return launches["orbax"]["raster_binned"]
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "acr_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -2582,6 +2702,7 @@ def main():
         f"{time.perf_counter() - t_new:.1f} s")
     stream_tool_launches = phase_stream_tools(
         card, synth_npz, os.path.join(out_dir, "stream_tools"))
+    orbax_launches = phase_orbax(card, os.path.join(out_dir, "orbax"))
     device["mano_fused"] = tdevice[f"mano_fused_{CHUNK}"]
     # B4 at the throughput path's shape: 8 hands per launch
     bounds["mano_fused"] = mano_bound(CHUNK)
@@ -2621,6 +2742,8 @@ def main():
     mano["paths"]["dp"] = dp_launches["mano_fused"]
     # the ingest smoke (image mode, 512 px) and profile_step at b8
     binned["paths"]["ingest"] = ingest_launches
+    # image mode at 512 px served from an orbax directory, counted from 0
+    binned["paths"]["orbax"] = orbax_launches
     mano["paths"]["profile_step"] = profile_launches
     binned["scenes"] = {
         name: {"ms": r["ms"][0], "device_ms": r["device_ms"],
