@@ -5,15 +5,25 @@
 
 * ``_METADATA``: JSON. ``tree_metadata`` maps each leaf's key path to
   its ``key_metadata`` (the dict keys) and ``value_metadata``;
-  ``use_ocdbt`` says where the arrays are. Each leaf is one zarr v2
-  array named by its keys joined with '.' (``params.a.w``).
+  ``use_ocdbt`` says where the arrays are, ``use_zarr3`` which zarr
+  version they are. Each leaf is one zarr array named by its keys joined
+  with '.' (``params.a.w``).
 * ``use_ocdbt: false``: each array is a directory, ``<name>/.zarray``
-  (JSON) and one file per chunk (``<name>/0.0``).
+  (JSON) and one file per chunk (``<name>/0.0``); in zarr v3,
+  ``<name>/zarr.json`` and ``<name>/c/0/0``.
 * ``use_ocdbt: true`` (orbax's default): the same keys
   (``params.a.w/.zarray``, ``params.a.w/0.0``) live in an OCDBT
   key-value store, tensorstore's b-tree on files. ``manifest.ocdbt``
   names the versions and their root nodes; the nodes and the values sit
   in data files (``d/<hex>``, ``ocdbt.process_0/d/<hex>``).
+* zarr v3 (orbax's ``use_zarr3=True``): each chunk goes through a codec
+  chain. Orbax writes one ``sharding_indexed`` codec: the chunk is a
+  shard of inner chunks (``bytes``, then ``zstd`` where compressed) and
+  an index of one (offset, nbytes) u64 pair per inner chunk, encoded by
+  ``bytes`` and ``crc32c``. ``transpose``, both byte orders, the
+  ``default`` and ``v2`` chunk keys, an index at the shard's start and
+  empty inner chunks are read too; any other codec raises ValueError
+  naming it.
 
 Every OCDBT file (a manifest, or a b-tree node at an offset of a data
 file) has one frame: a big-endian u32 magic, the u64 little-endian
@@ -25,8 +35,9 @@ ValueError naming the file.
 
 zstd frames (OCDBT bodies and zarr chunks) are decompressed by the
 system's libzstd through ctypes; where it is missing, reading raises.
-``save_orbax`` writes the ``use_ocdbt: false`` layout with uncompressed
-chunks, which orbax reads as it reads its own. Host numpy only.
+``save_orbax`` writes the ``use_ocdbt: false`` layout of zarr v2 arrays
+with uncompressed chunks, which orbax reads as it reads its own. Host
+numpy only.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ MANIFEST_MAGIC = 0x0CDB3A2A
 NODE_MAGIC = 0x0CDB20DE
 MANIFEST = "manifest.ocdbt"
 METADATA = "_METADATA"
+ZARR2_META, ZARR3_META = ".zarray", "zarr.json"
 _MISSING = 2 ** 64 - 1            # a root location's offset in an empty tree
 _DICT_KEY = 2                     # orbax's key_type of a dict key
 _VALUE_TYPES = ("jax.Array", "np.ndarray", "scalar")
@@ -373,12 +385,46 @@ def _zarr_dtype(spec, what: str) -> np.dtype:
 def _fill(value, spec: str, dtype: np.dtype):
     if value is None:
         return 0
+    if isinstance(value, str) and value.startswith("0x"):   # v3: the bits
+        bits = int(value, 16).to_bytes(dtype.itemsize, "little")
+        return np.frombuffer(bits, dtype.newbyteorder("<"))[0].astype(dtype)
     if isinstance(value, str):            # "NaN", "Infinity", "-Infinity"
         value = float(value)
     if spec == "bfloat16":
         return int(torch.tensor(value, dtype=torch.bfloat16)
                    .view(torch.int16).item()) & 0xFFFF
     return np.array(value).astype(dtype)
+
+
+def _assemble(shape, chunks, dtype: np.dtype, fill, block: Callable,
+              every_chunk: bool) -> np.ndarray:
+    """An array of ``shape`` from a regular grid of ``chunks``-shaped
+    blocks: ``block(idx)`` returns (its name, the block as an array of
+    ``chunks``, or None where it is absent). Blocks at the edge are
+    clipped; an absent one leaves the fill value, or raises where
+    ``every_chunk``."""
+    out = np.full(shape, fill, dtype)
+    grid = [-(-s // c) for s, c in zip(shape, chunks)]
+    for idx in np.ndindex(*grid):
+        name, data = block(idx)
+        if data is None:
+            if every_chunk:
+                raise ValueError(f"{name}: missing")
+            continue
+        lo = [i * c for i, c in zip(idx, chunks)]
+        hi = [min(a + c, s) for a, c, s in zip(lo, chunks, shape)]
+        out[tuple(slice(a, b) for a, b in zip(lo, hi))] = \
+            data[tuple(slice(0, b - a) for a, b in zip(lo, hi))]
+    return out
+
+
+def _finish(out: np.ndarray, bf16: bool):
+    """Native byte order; the raw bits of a bf16 array as torch.bfloat16."""
+    if not out.dtype.isnative:
+        out = out.astype(out.dtype.newbyteorder("="))
+    if bf16:
+        return torch.from_numpy(out.view(np.int16).copy()).view(torch.bfloat16)
+    return out
 
 
 def _decode_zarr(meta: Dict[str, Any],
@@ -405,31 +451,223 @@ def _decode_zarr(meta: Dict[str, Any],
         raise ValueError(f"{what}: compressor {comp.get('id')!r} is not read")
     sep = meta.get("dimension_separator", ".")
     dtype = _zarr_dtype(meta["dtype"], what)
-    out = np.full(shape, _fill(meta.get("fill_value"), meta["dtype"], dtype),
-                  dtype)
     nbytes = math.prod(chunks) * dtype.itemsize
-    grid = [-(-s // c) for s, c in zip(shape, chunks)]
-    for idx in np.ndindex(*grid):
+
+    def block(idx):
         key = sep.join(str(i) for i in idx) if idx else "0"
-        raw = chunk(key)
         ckey = f"{what} chunk {key}"
+        raw = chunk(key)
         if raw is None:
-            if every_chunk:
-                raise ValueError(f"{ckey}: missing")
-            continue
+            return ckey, None
         data = zstd_decompress(raw, ckey, nbytes) if comp else raw
         if len(data) != nbytes:
             raise ValueError(f"{ckey}: {len(data)} bytes, want {nbytes}")
-        block = np.frombuffer(data, dtype).reshape(chunks, order=order)
-        lo = [i * c for i, c in zip(idx, chunks)]
-        hi = [min(a + c, s) for a, c, s in zip(lo, chunks, shape)]
-        out[tuple(slice(a, b) for a, b in zip(lo, hi))] = \
-            block[tuple(slice(0, b - a) for a, b in zip(lo, hi))]
-    if not dtype.isnative:
-        out = out.astype(dtype.newbyteorder("="))
-    if meta["dtype"] == "bfloat16":
-        return torch.from_numpy(out.view(np.int16).copy()).view(torch.bfloat16)
+        return ckey, np.frombuffer(data, dtype).reshape(chunks, order=order)
+
+    out = _assemble(shape, chunks, dtype,
+                    _fill(meta.get("fill_value"), meta["dtype"], dtype),
+                    block, every_chunk)
+    return _finish(out, meta["dtype"] == "bfloat16")
+
+
+# --- zarr v3 ----------------------------------------------------------------
+
+# data_type -> numpy dtype, native order (the ``bytes`` codec names the
+# stored order); bfloat16 as its raw bits, made bf16 by ``_finish``
+_V3_DTYPES = {name: np.dtype(name) for name in (
+    "bool", "int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
+    "uint64", "float16", "float32", "float64")}
+_V3_DTYPES["bfloat16"] = np.dtype(np.uint16)
+_EMPTY = (_MISSING, _MISSING)             # a shard index's absent chunk
+
+
+def _codec(c, what: str) -> Tuple[str, Dict[str, Any]]:
+    if not isinstance(c, dict) or not isinstance(c.get("name"), str):
+        raise ValueError(f"{what}: codec {c!r}")
+    cfg = c.get("configuration") or {}
+    if not isinstance(cfg, dict):
+        raise ValueError(f"{what}: codec {c['name']!r} configuration {cfg!r}")
+    return c["name"], cfg
+
+
+def _split_codecs(codecs, what: str):
+    """(array -> array codecs, the array -> bytes codec, bytes -> bytes
+    codecs), each as (name, configuration), in encoding order."""
+    if not isinstance(codecs, list):
+        raise ValueError(f"{what}: codecs {codecs!r}")
+    aa, ab, bb = [], None, []
+    for c in codecs:
+        name, cfg = _codec(c, what)
+        if name == "transpose" and ab is None:
+            aa.append((name, cfg))
+        elif name in ("bytes", "sharding_indexed") and ab is None:
+            ab = (name, cfg)
+        elif name in ("zstd", "crc32c") and ab is not None:
+            bb.append((name, cfg))
+        elif name in ("transpose", "bytes", "sharding_indexed", "zstd",
+                      "crc32c"):
+            raise ValueError(f"{what}: codec {name!r} out of place")
+        else:
+            raise ValueError(f"{what}: codec {name!r} is not read")
+    if ab is None:
+        raise ValueError(f"{what}: no bytes or sharding_indexed codec")
+    return aa, ab, bb
+
+
+def _permutation(cfg, ndim: int, what: str) -> List[int]:
+    order = cfg.get("order")
+    if not isinstance(order, list) or sorted(order) != list(range(ndim)):
+        raise ValueError(f"{what}: transpose order {order!r} for {ndim} "
+                         "dimensions")
+    return order
+
+
+def _decode_v3(raw, codecs, shape, dtype: np.dtype, fill, what: str,
+               every_chunk: bool) -> np.ndarray:
+    """One zarr v3 chunk of ``shape`` from its stored bytes, through the
+    codec chain: ``transpose``, then ``bytes`` or ``sharding_indexed``,
+    then ``zstd`` and ``crc32c``; decoded in the reverse order."""
+    aa, (ab, ab_cfg), bb = _split_codecs(codecs, what)
+    shapes = [tuple(shape)]
+    for _, cfg in aa:
+        order = _permutation(cfg, len(shape), what)
+        shapes.append(tuple(shapes[-1][i] for i in order))
+    nbytes = math.prod(shapes[-1]) * dtype.itemsize
+    size = nbytes if ab == "bytes" else None
+    sizes = []                            # each bytes codec's input size
+    for name, _ in bb:
+        sizes.append(size)
+        size = None if name == "zstd" or size is None else size + 4
+    data = memoryview(raw)
+    for (name, _), n in zip(reversed(bb), reversed(sizes)):
+        if name == "zstd":
+            data = memoryview(zstd_decompress(bytes(data), what, n))
+        else:
+            if len(data) < 4 or _crc32c(data[:-4]) != \
+                    struct.unpack("<I", data[-4:])[0]:
+                raise ValueError(f"{what}: crc32c mismatch")
+            data = data[:-4]
+    if ab == "bytes":
+        endian = ab_cfg.get("endian")
+        if endian not in ("little", "big") and not (
+                endian is None and dtype.itemsize == 1):
+            raise ValueError(f"{what}: bytes codec endian {endian!r}")
+        if len(data) != nbytes:
+            raise ValueError(f"{what}: {len(data)} bytes, want {nbytes}")
+        out = np.frombuffer(data, dtype.newbyteorder(
+            ">" if endian == "big" else "<")).reshape(shapes[-1])
+    else:
+        out = _decode_shard(data, ab_cfg, shapes[-1], dtype, fill, what,
+                            every_chunk)
+    for _, cfg in reversed(aa):
+        out = out.transpose(np.argsort(cfg["order"]))
     return out
+
+
+def _index_bytes(codecs, n: int, what: str) -> int:
+    """The stored size of a shard index of ``n`` chunks: only codecs of a
+    fixed size (``transpose``, ``bytes``, ``crc32c``) may encode it."""
+    _, (ab, _), bb = _split_codecs(codecs, what)
+    if ab != "bytes" or any(name != "crc32c" for name, _ in bb):
+        raise ValueError(f"{what}: index codecs "
+                         f"{[c['name'] for c in codecs]} are not of a "
+                         "fixed size")
+    return 16 * n + 4 * len(bb)
+
+
+def _decode_shard(data, cfg, shape, dtype: np.dtype, fill, what: str,
+                  every_chunk: bool) -> np.ndarray:
+    """A ``sharding_indexed`` shard of ``shape``: a grid of inner chunks,
+    each encoded by the inner ``codecs``, located by an index of one
+    (offset, nbytes) u64 pair per chunk, in C order, at the shard's end
+    (or start)."""
+    inner = cfg.get("chunk_shape")
+    if (not isinstance(inner, list) or len(inner) != len(shape)
+            or any(not isinstance(c, int) or c < 1 for c in inner)):
+        raise ValueError(f"{what}: shard chunk_shape {inner!r} for {shape}")
+    location = cfg.get("index_location", "end")
+    if location not in ("start", "end"):
+        raise ValueError(f"{what}: index_location {location!r}")
+    grid = [-(-s // c) for s, c in zip(shape, inner)]
+    n = _index_bytes(cfg.get("index_codecs"), math.prod(grid),
+                     f"{what} shard index")
+    if len(data) < n:
+        raise ValueError(f"{what}: shard of {len(data)} bytes, index of {n}")
+    raw = data[:n] if location == "start" else data[len(data) - n:]
+    index = _decode_v3(raw, cfg["index_codecs"], grid + [2],
+                       np.dtype(np.uint64), 0, f"{what} shard index",
+                       False)
+
+    def block(idx):
+        name = f"{what} inner chunk {'.'.join(map(str, idx)) or '0'}"
+        offset, nbytes = (int(v) for v in index[idx])
+        if (offset, nbytes) == _EMPTY:
+            return name, None
+        if offset + nbytes > len(data):
+            raise ValueError(f"{name}: bytes [{offset}:{offset + nbytes}] "
+                             f"past the shard's end ({len(data)})")
+        return name, _decode_v3(data[offset:offset + nbytes],
+                                cfg.get("codecs"), inner, dtype, fill, name,
+                                every_chunk)
+
+    return _assemble(shape, inner, dtype, fill, block, every_chunk)
+
+
+def _chunk_key(encoding, idx: Tuple[int, ...], what: str) -> str:
+    name, cfg = _codec(encoding, what)
+    if name == "default":
+        sep = cfg.get("separator", "/")
+        head = "c"
+    elif name == "v2":
+        sep = cfg.get("separator", ".")
+        head = None
+    else:
+        raise ValueError(f"{what}: chunk_key_encoding {name!r} is not read")
+    if sep not in ("/", "."):
+        raise ValueError(f"{what}: chunk key separator {sep!r}")
+    parts = [str(i) for i in idx]
+    if head is None:
+        return sep.join(parts) if parts else "0"
+    return sep.join([head] + parts)
+
+
+def _decode_zarr3(meta: Dict[str, Any],
+                  chunk: Callable[[str], Optional[bytes]], what: str,
+                  every_chunk: bool = False):
+    """A zarr v3 array from its ``zarr.json`` dict and a function that
+    returns the stored bytes of a chunk key, or None; an absent chunk, or
+    an empty chunk of a shard, takes the fill value unless
+    ``every_chunk``, as in ``_decode_zarr``. Returns a numpy array, or a
+    torch.bfloat16 tensor for a ``bfloat16`` array."""
+    if meta.get("zarr_format") != 3 or meta.get("node_type") != "array":
+        raise ValueError(f"{what}: zarr_format {meta.get('zarr_format')} "
+                         f"node_type {meta.get('node_type')!r}")
+    if meta.get("storage_transformers"):
+        raise ValueError(f"{what}: storage_transformers are not read")
+    spec = meta["data_type"]
+    if not isinstance(spec, str) or spec not in _V3_DTYPES:
+        raise ValueError(f"{what}: data_type {spec!r}")
+    dtype = _V3_DTYPES[spec]
+    grid_name, grid_cfg = _codec(meta["chunk_grid"], what)
+    shape, chunks = tuple(meta["shape"]), tuple(grid_cfg.get("chunk_shape", ()))
+    if grid_name != "regular" or len(shape) != len(chunks) or any(
+            c < 1 for c in chunks):
+        raise ValueError(f"{what}: chunk grid {meta['chunk_grid']} for "
+                         f"shape {shape}")
+    fill = _fill(meta["fill_value"], spec, dtype)
+
+    def block(idx):
+        key = _chunk_key(meta.get("chunk_key_encoding", {"name": "default"}),
+                         idx, what)
+        ckey = f"{what} chunk {key}"
+        raw = chunk(key)
+        if raw is None:
+            return ckey, None
+        return ckey, _decode_v3(raw, meta["codecs"], chunks, dtype, fill,
+                                ckey, every_chunk)
+
+    return _finish(_assemble(shape, chunks, dtype, fill, block, every_chunk),
+                   spec == "bfloat16")
 
 
 # --- checkpoints -----------------------------------------------------------
@@ -443,14 +681,13 @@ def _read_json(path: str) -> Dict[str, Any]:
         raise ValueError(f"{path}: cannot read JSON: {exc}") from exc
 
 
-def _tree_leaves(path: str) -> List[Tuple[str, ...]]:
-    """The dict keys of every array leaf, from ``_METADATA``."""
+def _tree_leaves(path: str) -> Tuple[List[Tuple[str, ...]], bool]:
+    """The dict keys of every array leaf, from ``_METADATA``, and whether
+    the arrays are zarr v3 (``use_zarr3``)."""
     meta_path = os.path.join(path, METADATA)
     meta = _read_json(meta_path)
     if not isinstance(meta.get("tree_metadata"), dict):
         raise ValueError(f"{meta_path}: no tree_metadata")
-    if meta.get("use_zarr3"):
-        raise ValueError(f"{meta_path}: zarr v3 arrays are not read")
     leaves = []
     for name, entry in meta["tree_metadata"].items():
         try:
@@ -467,15 +704,18 @@ def _tree_leaves(path: str) -> List[Tuple[str, ...]]:
             raise ValueError(f"{meta_path}: {name} has value type "
                              f"{value_type!r}")
         leaves.append(tuple(keys))
-    return leaves
+    return leaves, bool(meta.get("use_zarr3"))
 
 
 def load_orbax(path: str) -> Dict[str, Any]:
     """The nested dict of arrays that orbax's ``PyTreeCheckpointer``
-    saved in the directory ``path``, OCDBT or not."""
+    saved in the directory ``path``, OCDBT or not, zarr v2 or v3."""
     path = os.path.abspath(path)
     meta = _read_json(os.path.join(path, METADATA))
     every_chunk = bool(meta.get("store_array_data_equal_to_fill_value"))
+    leaves, zarr3 = _tree_leaves(path)
+    meta_file, decode = ((ZARR3_META, _decode_zarr3) if zarr3 else
+                         (ZARR2_META, _decode_zarr))
     if meta.get("use_ocdbt"):
         store = OcdbtStore(path)
         values = store.items()
@@ -484,15 +724,15 @@ def load_orbax(path: str) -> Dict[str, Any]:
             value = values.get(f"{name}/{key}".encode())
             return None if value is None else store.read(value)
 
-        def zarray(name):
-            value = values.get(f"{name}/.zarray".encode())
+        def array_meta(name):
+            key = f"{name}/{meta_file}"
+            value = values.get(key.encode())
             if value is None:
-                raise ValueError(f"{path}: no key {name}/.zarray in the OCDBT "
-                                 "store")
+                raise ValueError(f"{path}: no key {key} in the OCDBT store")
             try:
                 return json.loads(store.read(value))
             except ValueError as exc:
-                raise ValueError(f"{path}: {name}/.zarray: {exc}") from exc
+                raise ValueError(f"{path}: {key}: {exc}") from exc
     else:
         def chunk(name, key):
             f = os.path.join(path, name, *key.split("/"))
@@ -501,22 +741,22 @@ def load_orbax(path: str) -> Dict[str, Any]:
             with open(f, "rb") as fh:
                 return fh.read()
 
-        def zarray(name):
-            return _read_json(os.path.join(path, name, ".zarray"))
+        def array_meta(name):
+            return _read_json(os.path.join(path, name, meta_file))
 
     tree: Dict[str, Any] = {}
-    for keys in _tree_leaves(path):
+    for keys in leaves:
         name = ".".join(keys)
         what = os.path.join(path, name)
         node = tree
         for k in keys[:-1]:
             node = node.setdefault(k, {})
-        meta = zarray(name)
+        meta = array_meta(name)
         try:
-            node[keys[-1]] = _decode_zarr(
+            node[keys[-1]] = decode(
                 meta, lambda key, n=name: chunk(n, key), what, every_chunk)
-        except (KeyError, TypeError) as exc:
-            raise ValueError(f"{what}: .zarray {exc!r}") from exc
+        except (KeyError, TypeError, AttributeError) as exc:
+            raise ValueError(f"{what}: {meta_file} {exc!r}") from exc
     return tree
 
 

@@ -46,11 +46,15 @@ frames made from a seed:
   ``precision_ladder`` (fp32, bf16, int8 at render 512 and fp32 at
   2048), ``profile_stream`` at render 2048 (B3) and 512 (B1) and
   ``stream_bench``; the scene's step on the card against the CPU port;
-- orbax checkpoint directories (``phase_orbax``): the committed OCDBT
-  fixture ``tests/golden/orbax_small`` decoded through the system's
-  libzstd against its npz, and the image path at 512 px served from the
-  port's ``save_params_orbax`` directory, bit for bit against the npz
-  route, with both routes' load times.
+- orbax checkpoint directories (``phase_orbax``): the committed
+  fixtures ``tests/golden/orbax_small`` (zarr v2 in OCDBT),
+  ``orbax_small_zarr3`` (zarr v3 in OCDBT) and ``orbax_sharded_zarr3``
+  (zarr v3 in the plain layout, a leaf of four shards) decoded through
+  the system's libzstd against their npz, and the image path at 512 px
+  served from the port's ``save_params_orbax`` directory (zarr v2) and
+  from the same weights re-encoded as orbax's zarr v3
+  (``_zarr3_from_v2``), bit for bit against the npz route, with the
+  three routes' load times.
 It checks them against the port's own CPU run, and times the steps, the
 loop, the chunk step, folder mode and the kernels: each kernel by CUDA
 events around back-to-back calls (``ms``) and alone on the device, as
@@ -2526,7 +2530,67 @@ def phase_stream_tools(card, synth_npz, out_dir):
 
 # ---- orbax checkpoint directories ----
 ORBAX_FIXTURE = os.path.join("tests", "golden", "orbax_small")
+# the zarr v3 fixtures: OCDBT with zstd, and the plain layout with a leaf
+# of four shards
+ORBAX_ZARR3_FIXTURES = tuple(os.path.join("tests", "golden", name) for name in
+                             ("orbax_small_zarr3", "orbax_sharded_zarr3"))
 N_LOADS = 3                   # timed load_params calls per route
+# zarr v2 dtype of the port's plain layout -> zarr v3 data_type
+_V3_TYPE = {"<f4": "float32", "<f2": "float16", "<f8": "float64",
+            "bfloat16": "bfloat16", "|b1": "bool", "|i1": "int8",
+            "|u1": "uint8", "<i2": "int16", "<i4": "int32", "<i8": "int64",
+            "<u2": "uint16", "<u4": "uint32", "<u8": "uint64"}
+
+
+def _zarr3_from_v2(src, dst):
+    """Re-encode the port's plain zarr v2 checkpoint directory ``src``
+    (``save_params_orbax``: one uncompressed C-order chunk per leaf) as
+    the directory orbax writes with ``use_zarr3=True, use_ocdbt=False,
+    use_compression=False``: per leaf a ``zarr.json`` and one
+    ``sharding_indexed`` shard ``c/0/...`` (the ``bytes`` codec, then the
+    index: one (offset, nbytes) u64 pair and its crc32c)."""
+    import struct
+    from acr_tpu_torch.io.orbax import _crc32c
+    with open(os.path.join(src, "_METADATA")) as f:
+        meta = json.load(f)
+    os.makedirs(dst)
+    for entry in meta["tree_metadata"].values():
+        name = ".".join(k["key"] for k in entry["key_metadata"])
+        with open(os.path.join(src, name, ".zarray")) as f:
+            zarray = json.load(f)
+        shape = zarray["shape"]
+        if (zarray["chunks"] != shape or zarray["compressor"] is not None
+                or zarray["order"] != "C" or zarray["filters"]):
+            raise ValueError(f"{src}/{name}: not the port's plain layout")
+        with open(os.path.join(src, name, ".".join("0" for _ in shape)
+                               or "0"), "rb") as f:
+            data = f.read()
+        dtype = _V3_TYPE[zarray["dtype"]]
+        one_byte = dtype in ("bool", "int8", "uint8")
+        array_codec = ({"name": "bytes"} if one_byte else
+                       {"configuration": {"endian": "little"}, "name": "bytes"})
+        index = struct.pack("<QQ", 0, len(data))
+        fill = (False if dtype == "bool" else 0 if "int" in dtype else 0.0)
+        zarr_json = {
+            "chunk_grid": {"configuration": {"chunk_shape": shape},
+                           "name": "regular"},
+            "chunk_key_encoding": {"name": "default"},
+            "codecs": [{"configuration": {
+                "chunk_shape": shape, "codecs": [array_codec],
+                "index_codecs": [{"configuration": {"endian": "little"},
+                                  "name": "bytes"}, {"name": "crc32c"}]},
+                "name": "sharding_indexed"}],
+            "data_type": dtype, "fill_value": fill, "node_type": "array",
+            "shape": shape, "zarr_format": 3}
+        shard = os.path.join(dst, name, "c", *("0" for _ in shape))
+        os.makedirs(os.path.dirname(shard), exist_ok=True)
+        with open(os.path.join(dst, name, "zarr.json"), "w") as f:
+            json.dump(zarr_json, f, sort_keys=True, separators=(",", ":"))
+        with open(shard, "wb") as f:
+            f.write(data + index + struct.pack("<I", _crc32c(index)))
+    meta["use_zarr3"] = True
+    with open(os.path.join(dst, "_METADATA"), "w") as f:
+        json.dump(meta, f)
 
 
 def _same_output(got, want, what):
@@ -2541,58 +2605,75 @@ def _same_output(got, want, what):
             raise AssertionError(f"{what}: {k} differs")
 
 
+def _check_fixture(rel):
+    """Read the committed orbax fixture ``rel`` and hold every leaf to
+    ``<rel>.npz`` bit for bit; returns (seconds of the read, files,
+    leaves)."""
+    import numpy as np
+    import torch
+    from acr_tpu_torch.io.params import flatten_params, load_params_orbax
+    fixture = os.path.join(ROOT, rel)
+    w0 = time.perf_counter()
+    got = flatten_params(load_params_orbax(fixture))
+    seconds = time.perf_counter() - w0
+    with np.load(fixture + ".npz") as z:
+        bf16 = set(z["bfloat16_leaves"].tolist())
+        want = {k: z[k] for k in z.files if k != "bfloat16_leaves"}
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"orbax: {rel} leaves {sorted(got)}")
+    for k, w in want.items():
+        g = (got[k].view(torch.int16).numpy().view(np.uint16) if k in bf16
+             else got[k])
+        if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError(f"orbax: {rel} leaf {k} differs from the npz")
+    n_files = sum(len(f) for _, _, f in os.walk(fixture))
+    return seconds, n_files, len(want)
+
+
 def phase_orbax(card, out_dir):
     """Orbax checkpoint directories on the card, with nothing of orbax,
-    tensorstore or JAX: the committed OCDBT fixture (written by
-    ``acr_tpu.io.params.save_params_orbax``, zstd nodes and chunks) read
-    through the system's libzstd against its npz, bit for bit; then the
-    main path's full-width "near" weights written by the port's
-    ``save_params_npz`` and ``save_params_orbax``, ``load_params`` timed on
-    both, and ``ACRApp`` image mode at 512 px on one 720p frame from each
-    route. B1 is counted from 0 over the orbax route's frame (the "orbax"
-    path); its outputs must equal the npz route's bit for bit. Returns
-    B1's launches there."""
+    tensorstore or JAX: the committed fixtures (written by orbax: zarr v2
+    in OCDBT with zstd, zarr v3 in OCDBT with zstd, and zarr v3 in the
+    plain layout with a leaf of four shards) read through the system's
+    libzstd against their npz, bit for bit; then the main path's
+    full-width "near" weights written by the port's ``save_params_npz``
+    and ``save_params_orbax`` (zarr v2), and re-encoded by
+    ``_zarr3_from_v2`` into orbax's zarr v3 form, ``load_params`` timed on
+    each, and ``ACRApp`` image mode at 512 px on one 720p frame from each
+    route. B1 is counted from 0 over each orbax route's frame (the
+    "orbax" and "orbax_zarr3" paths); their outputs must equal the npz
+    route's bit for bit. Returns B1's launches on those two paths."""
     import numpy as np
     import torch
     from acr_tpu_torch.config import Config
     from acr_tpu_torch.io import orbax as ox
-    from acr_tpu_torch.io.params import (flatten_params, load_params,
-                                         load_params_orbax, save_params_npz,
+    from acr_tpu_torch.io.params import (load_params, save_params_npz,
                                          save_params_orbax, to_flax,
                                          unflatten_params)
     from acr_tpu_torch.pipeline.app import ACRApp
     t0 = time.perf_counter()
     os.makedirs(out_dir, exist_ok=True)
-    fixture = os.path.join(ROOT, ORBAX_FIXTURE)
     lib = ox.zstd_library()
-    w0 = time.perf_counter()
-    got = flatten_params(load_params_orbax(fixture))
-    fixture_s = time.perf_counter() - w0
-    with np.load(fixture + ".npz") as z:
-        bf16 = set(z["bfloat16_leaves"].tolist())
-        want = {k: z[k] for k in z.files if k != "bfloat16_leaves"}
-    if sorted(got) != sorted(want):
-        raise AssertionError(f"orbax: fixture leaves {sorted(got)}")
-    for k, w in want.items():
-        g = (got[k].view(torch.int16).numpy().view(np.uint16) if k in bf16
-             else got[k])
-        if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(g, w):
-            raise AssertionError(f"orbax: fixture leaf {k} differs from the npz")
-    n_files = sum(len(f) for _, _, f in os.walk(fixture))
-    say("orbax", f"the committed OCDBT fixture ({n_files} files, {len(want)} "
-        f"leaves: fp32, bf16, int8, int32, bool, 0-d) read through libzstd "
-        f"{lib.ZSTD_versionNumber()} in {fixture_s:.4f} s: every leaf equals "
-        f"{ORBAX_FIXTURE}.npz bit for bit")
+    for rel in (ORBAX_FIXTURE,) + ORBAX_ZARR3_FIXTURES:
+        seconds, n_files, n_leaves = _check_fixture(rel)
+        say("orbax", f"the committed fixture {rel} ({n_files} files, "
+            f"{n_leaves} leaves: fp32, bf16, int8, int32, bool, 0-d) read "
+            f"through libzstd {lib.ZSTD_versionNumber()} in {seconds:.4f} s "
+            f"(host wall) [{card}]: every leaf equals {rel}.npz bit for bit")
 
     weights = _weights(CAM_SCALE["near"])
     paths = {"npz": os.path.join(out_dir, "served.npz"),
-             "orbax": os.path.join(out_dir, "served_orbax")}
+             "orbax": os.path.join(out_dir, "served_orbax"),
+             "orbax_zarr3": os.path.join(out_dir, "served_orbax_zarr3")}
     w0 = time.perf_counter()
     save_params_npz(paths["npz"], weights)
     save_s = {"npz": time.perf_counter() - w0}
     w0 = time.perf_counter()
     save_params_orbax(paths["orbax"], unflatten_params(to_flax(weights)))
     save_s["orbax"] = time.perf_counter() - w0
+    w0 = time.perf_counter()
+    _zarr3_from_v2(paths["orbax"], paths["orbax_zarr3"])
+    save_s["orbax_zarr3"] = time.perf_counter() - w0
     load_s = {}
     for route, path in paths.items():
         load_s[route] = []
@@ -2609,7 +2690,8 @@ def phase_orbax(card, out_dir):
     say("orbax", "full-width weights: " + "; ".join(
         f"{r} {size[r] / 1e6:.1f} MB written in {save_s[r]:.3f} s, "
         f"load_params {json.dumps([round(t, 4) for t in load_s[r]])} s"
-        for r in paths) + f" (host wall) [{card}]")
+        for r in paths) + f" (host wall; orbax_zarr3 written from the "
+        f"orbax directory) [{card}]")
 
     frame = (np.random.RandomState(31).rand(*FRAME_HW, 3) * 255).astype(
         np.uint8)
@@ -2628,15 +2710,17 @@ def phase_orbax(card, out_dir):
         launches[route] = {k: v for k, v in _launch_counts().items() if v}
         outs[route] = app.last_output
         del app
-    _check_image_outs([outs["orbax"]], launches["orbax"], "orbax")
-    _same_output(outs["orbax"], outs["npz"], "orbax vs npz")
+    for route in ("orbax", "orbax_zarr3"):
+        _check_image_outs([outs[route]], launches[route], route)
+        _same_output(outs[route], outs["npz"], f"{route} vs npz")
     say("orbax", f"ACRApp image mode, {SIZE} px, one {FRAME_HW[0]}x"
-        f"{FRAME_HW[1]} frame: the orbax route's outputs ({len(outs['npz'])} "
-        f"arrays, _rgba included) equal the npz route's bit for bit; "
-        f"launches {launches['orbax']}; ACRApp built in "
+        f"{FRAME_HW[1]} frame: the orbax and orbax_zarr3 routes' outputs "
+        f"({len(outs['npz'])} arrays, _rgba included) equal the npz route's "
+        f"bit for bit; launches {launches['orbax']} and "
+        f"{launches['orbax_zarr3']}; ACRApp built in "
         + ", ".join(f"{r} {build_s[r]:.3f} s" for r in paths)
         + f" [{card}] ({time.perf_counter() - t0:.1f} s)")
-    return launches["orbax"]["raster_binned"]
+    return {r: launches[r]["raster_binned"] for r in ("orbax", "orbax_zarr3")}
 
 
 def main():
@@ -2742,8 +2826,9 @@ def main():
     mano["paths"]["dp"] = dp_launches["mano_fused"]
     # the ingest smoke (image mode, 512 px) and profile_step at b8
     binned["paths"]["ingest"] = ingest_launches
-    # image mode at 512 px served from an orbax directory, counted from 0
-    binned["paths"]["orbax"] = orbax_launches
+    # image mode at 512 px served from an orbax directory (zarr v2, and
+    # zarr v3), each counted from 0
+    binned["paths"].update(orbax_launches)
     mano["paths"]["profile_step"] = profile_launches
     binned["scenes"] = {
         name: {"ms": r["ms"][0], "device_ms": r["device_ms"],
