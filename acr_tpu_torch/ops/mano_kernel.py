@@ -152,6 +152,16 @@ def fused_blend_skin(data: ManoKernelData, coef: torch.Tensor,
     return out
 
 
+def fused_work(batch: int) -> Tuple[int, int]:
+    """(bytes, FLOPs) of one ``fused_blend_skin`` launch at ``batch``
+    hands: coef, g_rows, basis and weights read once, the vertices written
+    once; the two products and the affine, whose products are FMAs."""
+    n_bytes = 4 * (batch * N_COEF + batch * 192 + N_COEF * 3 * N_VERTS
+                   + 16 * N_VERTS + batch * N_VERTS * 3)
+    n_flops = batch * N_VERTS * (2 * (N_COEF * 3 + 12 * 16) + 18)
+    return n_bytes, n_flops
+
+
 def blend_skin_operands(data: ManoKernelData, poses: torch.Tensor,
                         betas: torch.Tensor, add_mean: bool = True):
     """The per-joint math of the MANO forward: poses (B, 48), betas

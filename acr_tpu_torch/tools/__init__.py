@@ -4,7 +4,7 @@ Each module but ``dryrun`` and ``stream_setup`` runs as ``python -m
 acr_tpu_torch.tools.<name>`` with the flags of its counterpart in the
 repository's ``tools/`` (the JAX side); ``dryrun`` holds the functions of
 ``__graft_entry__.py``, ``stream_setup`` those of ``bench.py`` that the
-stream tools drive:
+stream tools and the port's bench (``acr_tpu_torch.bench``) drive:
 
   convert_checkpoint        — the reference's wild.pkl -> npz of flax paths
   convert_mano              — MANO_{LEFT,RIGHT}.pkl -> mano_{side}.npz

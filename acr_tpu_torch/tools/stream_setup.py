@@ -3,7 +3,8 @@
 Counterpart of ``bench.py:127-279`` (``_build_stream_app``,
 ``_force_packed``, ``stream_step_setup``, ``_measure_stream_b1``), the
 part of the bench that ``tools/profile_stream.py`` and
-``tools/precision_ladder.py`` drive; the bench itself is not ported.
+``tools/precision_ladder.py`` drive; the bench itself is
+``acr_tpu_torch.bench``, which drives them too.
 
 * ``realistic_scene`` overwrites the part module's fuse convs, which emit
   each hand's parameters in ``offset_mode='concat'``, to a constant

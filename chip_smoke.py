@@ -46,6 +46,12 @@ frames made from a seed:
   ``precision_ladder`` (fp32, bf16, int8 at render 512 and fp32 at
   2048), ``profile_stream`` at render 2048 (B3) and 512 (B1) and
   ``stream_bench``; the scene's step on the card against the CPU port;
+- the port's bench (``phase_bench``): ``python -m acr_tpu_torch.bench``
+  in-process at 10 iterations and 3 repetitions (the bf16 b8 forward
+  with its roofline, fp32 b1, the four stream steps, the stream loop,
+  bf16+int8 b16), one forward config (fp32 b8) and ``ACR_BENCH_DP=2``,
+  which must raise on one card; the headline forward on the card against
+  the CPU port;
 - orbax checkpoint directories (``phase_orbax``): the committed
   fixtures ``tests/golden/orbax_small`` (zarr v2 in OCDBT),
   ``orbax_small_zarr3`` (zarr v3 in OCDBT) and ``orbax_sharded_zarr3``
@@ -82,6 +88,7 @@ every band and tile fits the banded kernel's caps.
 """
 
 import dataclasses
+import functools
 import importlib
 import importlib.util
 import json
@@ -192,14 +199,17 @@ def ms_text(t):
             f"max {t[2]:.4f})")
 
 
-# the card's peak rates for bound_ms (H100 SXM data sheet: HBM3 bytes/s;
-# fp32 operations/s outside the tensor cores, which counts an FFMA as two
-# operations: 132 SMs x 128 lanes x 1.98 GHz x 2)
-PEAK_BYTES_S = 3.35e12
-PEAK_FP32_S = 67e12
-# the rasterizers' edge math is compiled with --fmad=false: only FADD and
-# FMUL, one operation per lane per clock, half the rate above
-PEAK_FADD_FMUL_S = 33.5e12
+# the card's peak rates for bound_ms: utils.device.PEAKS, by the card's
+# nvidia-smi name (HBM3 bytes/s; fp32 operations/s outside the tensor
+# cores, which counts an FFMA as two operations). The rasterizers' edge
+# math is compiled with --fmad=false: only FADD and FMUL, one operation
+# per lane per clock, half the fp32 rate
+@functools.lru_cache(maxsize=None)
+def peaks():
+    from acr_tpu_torch.utils.device import card_peaks
+    return card_peaks("cuda")
+
+
 # fp32 operations of the rasterizers' edge math per (face, pixel) pair:
 # w0 and w1 8 each, w2 2, depth 5 (csrc/raster.cu edge_test)
 EDGE_FLOPS = 23
@@ -207,12 +217,13 @@ EDGE_FLOPS = 23
 PIXEL_OUT_BYTES = 19 * 4
 
 
-def bound(n_bytes, n_flops, flops_s=PEAK_FADD_FMUL_S):
+def bound(n_bytes, n_flops, fma=False):
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the fp32 operations over ``flops_s`` (the FADD
-    and FMUL rate of the rasterizers by default). Returns (ms, "bytes" or
-    "operations")."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_flops / flops_s
+    the memory rate and the fp32 operations over the FADD and FMUL rate
+    of the rasterizers (the full fp32 rate with ``fma``). Returns (ms,
+    "bytes" or "operations")."""
+    flops_s = peaks()["fp32"] / (1 if fma else 2)
+    t_bytes, t_ops = n_bytes / peaks()["bytes_s"], n_flops / flops_s
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -259,13 +270,11 @@ def binned_bound(tri, inv, counts, ids_t, height, width, col_tile):
 
 
 def mano_bound(batch):
-    """B4 at ``batch`` hands: coef, g_rows, basis and weights read once,
-    the vertices written once; the two products and the affine, whose
-    products are FMAs (the 67e12 rate)."""
-    n_bytes = 4 * (batch * 146 + batch * 192 + 146 * 3 * 778 + 16 * 778
-                   + batch * 778 * 3)
-    n_flops = batch * 778 * (2 * (146 * 3 + 12 * 16) + 18)
-    return bound(n_bytes, n_flops, PEAK_FP32_S)
+    """B4 at ``batch`` hands (``mano_kernel.fused_work``: coef, g_rows,
+    basis and weights read once, the vertices written once; the two
+    products and the affine, whose products are FMAs)."""
+    from acr_tpu_torch.ops.mano_kernel import fused_work
+    return bound(*fused_work(batch), fma=True)
 
 
 def phase_env():
@@ -2528,6 +2537,150 @@ def phase_stream_tools(card, synth_npz, out_dir):
     return launches
 
 
+# ---- the port's bench ----
+BENCH_ENV = {"ACR_BENCH_ITERS": "10", "ACR_BENCH_REPS": "3"}
+ROOFLINE_KEYS = ["gflops_per_step", "hbm_gb_per_step", "achieved_tflops",
+                 "mfu_pct", "apparent_hbm_gbps", "hbm_bound"]
+
+
+def _bench_run(env):
+    """``python -m acr_tpu_torch.bench`` in this process with the
+    ``ACR_BENCH_*`` variables set to ``env`` alone. Returns its JSON
+    line; raises where it exits nonzero or raises."""
+    saved = {k: os.environ.pop(k) for k in list(os.environ)
+             if k.startswith("ACR_BENCH_")}
+    os.environ.update(env)
+    try:
+        code, text = _run_module("acr_tpu_torch.bench", [])
+    finally:
+        for k in env:
+            del os.environ[k]
+        os.environ.update(saved)
+    if code != 0:
+        raise AssertionError(f"bench: exit {code} under {env}")
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def _numbers(tree):
+    """Every number in a JSON tree (booleans left out)."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _numbers(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _numbers(v)]
+    return [tree] if not isinstance(tree, (bool, str)) else []
+
+
+def _check_bench_line(line, metric, card):
+    """The line's metric; its value finite and > 0; every number of
+    ``extra`` finite, and > 0 but the readbacks (a sync and a copy of a
+    few bytes round to 0.0 ms); no skip marker; the card's line."""
+    import math
+    rates = {k: v for k, v in line["extra"].items() if "readback" not in k}
+    if (line["metric"] != metric or "skipped:" in json.dumps(line)
+            or line["card"] != card or not all(
+                math.isfinite(x) for x in _numbers(line["extra"]))
+            or not all(x > 0 for x in _numbers(rates) + [line["value"]])
+            or not math.isfinite(line["value"])):
+        raise AssertionError(f"bench: the line {json.dumps(line)}")
+
+
+def phase_bench(card):
+    """The port's bench on the card, in-process (``python -m
+    acr_tpu_torch.bench``, so the launch counts see its kernels), at
+    ``ACR_BENCH_ITERS=10 ACR_BENCH_REPS=3``: the default run (B1, B3 and
+    B4 counted from 0: the "bench" path), whose line must hold the
+    headline metric, a finite value > 0, finite numbers, no skip marker
+    and a roofline with 0 < mfu_pct < 100; one forward config
+    (``ACR_BENCH_PRECISION=fp32 ACR_BENCH_BATCH=8``; B4 counted from 0:
+    "bench fp32 b8"); ``ACR_BENCH_DP=2``, which must raise on one card.
+    Then the headline's forward (b8, 512 px, the bench's frames and
+    weights) on the card against the port on the CPU: in fp32 the same
+    flags and centres, verts, j3d and pj2d within 1e-4
+    (phase_device_vs_cpu's bound); in bf16 the same flags, verts within
+    BF16_VERTS_TOL["cpu"] where the two pick the same centre, and a
+    different pick only on a near-tie of the CPU's map (its top two NMS
+    peaks within 2^-7 of each other), as
+    tests/test_torch_port_precision_cuda.py holds the bf16 pipeline. Returns
+    ({kernel: launches} of the default run, B4's launches in the fp32 b8
+    run)."""
+    import torch
+    from acr_tpu_torch.parser.center import nms_heatmap
+    from acr_tpu_torch.tools import dryrun
+    t0 = time.perf_counter()
+    _reset_launch_counts()
+    w0 = time.perf_counter()
+    line = _bench_run(BENCH_ENV)
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    say("bench", f"python -m acr_tpu_torch.bench ({BENCH_ENV}): "
+        f"{time.perf_counter() - w0:.3f} s; launches {launches}")
+    _check_bench_line(line, "two_hand_512px_inference_fps_b8_bf16", card)
+    roof = line["extra"]["roofline"]
+    if list(roof) != ROOFLINE_KEYS or not 0 < roof["mfu_pct"] < 100:
+        raise AssertionError(f"bench: the roofline {roof}")
+    if not all(launches.get(k) for k in ("raster_binned", "raster_banded",
+                                         "mano_fused")):
+        raise AssertionError(f"bench: B1, B3 and B4 must launch: {launches}")
+    single = dict(BENCH_ENV, ACR_BENCH_PRECISION="fp32", ACR_BENCH_BATCH="8")
+    _reset_launch_counts()
+    w0 = time.perf_counter()
+    one = _bench_run(single)
+    b8 = _launch_counts()["mano_fused"]
+    say("bench", f"one forward config ({single}): "
+        f"{time.perf_counter() - w0:.3f} s; B4 launches {b8}")
+    _check_bench_line(one, "two_hand_512px_inference_fps_b8_fp32", card)
+    if list(one["extra"]) != ["readback_ms", "fps_uncorrected"] or not b8:
+        raise AssertionError(f"bench: fp32 b8 extra {one['extra']}, B4 {b8}")
+    try:
+        _bench_run(dict(BENCH_ENV, ACR_BENCH_DP="2"))
+    except RuntimeError as e:
+        if "needs 2 cards, have 1" not in str(e):
+            raise
+        say("bench", f"ACR_BENCH_DP=2 on one card raises: {e}")
+    else:
+        raise AssertionError("bench: ACR_BENCH_DP=2 ran on one card")
+
+    w0 = time.perf_counter()
+    image, offsets = dryrun.example_inputs(8, SIZE)
+    outs = {}
+    for prec in ("fp32", "bf16"):
+        for dev in ("cuda", "cpu"):
+            _, pipe = dryrun._build(SIZE, prec, device=dev)
+            outs[prec, dev] = {k: v.cpu().float() for k, v in pipe(
+                image, offsets, return_maps=True).items()}
+    fp32 = {k: float((outs["fp32", "cuda"][k] - outs["fp32", "cpu"][k])
+                     .abs().max()) for k in ("verts", "j3d", "pj2d")}
+    same32 = all(torch.equal(outs["fp32", "cuda"][k], outs["fp32", "cpu"][k])
+                 for k in ("detection_flag", "centers"))
+    gpu, cpu = outs["bf16", "cuda"], outs["bf16", "cpu"]
+    bf16, ties = 0.0, []
+    for b in range(8):
+        for hand, side in enumerate(("l", "r")):
+            if torch.equal(gpu["centers"][b, hand], cpu["centers"][b, hand]):
+                bf16 = max(bf16, float((gpu["verts"][b, hand]
+                                        - cpu["verts"][b, hand]).abs().max()))
+            else:
+                top2 = torch.topk(nms_heatmap(
+                    cpu[f"{side}_center_map"][b, ..., 0][None]).flatten(), 2)
+                ties.append(float((top2.values[0] - top2.values[1])
+                                  / top2.values[0].abs()))
+    say("bench", f"the headline forward (b8, {SIZE} px, the bench's frames "
+        f"and weights), card vs the CPU port: fp32 flags and centres equal "
+        f"{same32}, max abs err {json.dumps(fp32)} (tol 1e-4); bf16 flags "
+        f"equal {torch.equal(gpu['detection_flag'], cpu['detection_flag'])}, "
+        f"verts max abs err {bf16:.3e} m where the centres agree (tol "
+        f"{BF16_VERTS_TOL['cpu']:g}), {len(ties)} of 16 hands on another "
+        f"centre, the CPU map's top two peaks apart by {ties} (tol 2^-7) "
+        f"({time.perf_counter() - w0:.1f} s)")
+    if (not same32 or max(fp32.values()) > 1e-4
+            or not torch.equal(gpu["detection_flag"], cpu["detection_flag"])
+            or bf16 > BF16_VERTS_TOL["cpu"]
+            or any(t >= 2.0 ** -7 for t in ties)):
+        raise AssertionError("bench: card and CPU disagree")
+    say("bench", f"the bench phase took {time.perf_counter() - t0:.1f} s "
+        f"[{card}]: {json.dumps(line)}")
+    return launches, b8
+
+
 # ---- orbax checkpoint directories ----
 ORBAX_FIXTURE = os.path.join("tests", "golden", "orbax_small")
 # the zarr v3 fixtures: OCDBT with zstd, and the plain layout with a leaf
@@ -2786,6 +2939,7 @@ def main():
         f"{time.perf_counter() - t_new:.1f} s")
     stream_tool_launches = phase_stream_tools(
         card, synth_npz, os.path.join(out_dir, "stream_tools"))
+    bench_launches, bench_b8 = phase_bench(card)
     orbax_launches = phase_orbax(card, os.path.join(out_dir, "orbax"))
     device["mano_fused"] = tdevice[f"mano_fused_{CHUNK}"]
     # B4 at the throughput path's shape: 8 hands per launch
@@ -2848,6 +3002,10 @@ def main():
     for e in (flat, binned, banded):
         e.setdefault("paths", {})["stream tools"] = \
             stream_tool_launches[e["name"]]
+    # the port's bench: its default run, and one fp32 b8 forward config
+    for e in (binned, banded, mano):
+        e["paths"]["bench"] = bench_launches[e["name"]]
+    mano["paths"]["bench fp32 b8"] = bench_b8
     print(json.dumps({"kernels": [flat, binned, banded, mano]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -200,7 +200,7 @@ def test_no_module_imports_jax():
         "        'acr_tpu_torch.utils.session',\n"
         "        'acr_tpu_torch.parser.centermap_gt',\n"
         "        'acr_tpu_torch.io.torch_names', 'acr_tpu_torch.tools',\n"
-        "        'acr_tpu_torch.io.orbax'}\n"
+        "        'acr_tpu_torch.io.orbax', 'acr_tpu_torch.bench'}\n"
         "new |= {'acr_tpu_torch.tools.' + m for m in\n"
         "        ('convert_checkpoint', 'convert_mano', 'make_synthetic_mano',\n"
         "         'make_synthetic_checkpoint', 'make_calib_frames',\n"

@@ -4,7 +4,8 @@ An ``ast`` walk lists the public top-level functions and classes of each
 module of ``acr_tpu``; each must be a callable of the same name in the
 port's module of the same path (the Pallas rasterizers' module maps to
 the CUDA kernels' one, ``RENAMED``), or be in ``LEFT_OUT`` with its
-reason. The functions ported last are held against JAX's on seeded
+reason. So must the public names of ``bench.py`` in ``acr_tpu_torch.bench``
+(``SCRIPTS``). The functions ported last are held against JAX's on seeded
 inputs: the writers' files, ``load_obj(save_obj(...))``,
 ``transform_rot_representation`` over every pair of types, ``shade``,
 the params helpers and ``native.available``.
@@ -84,8 +85,8 @@ def _jax_modules():
     return sorted(out)
 
 
-def _public(rel):
-    with open(os.path.join(REPO, "acr_tpu", rel)) as f:
+def _public(rel, root="acr_tpu"):
+    with open(os.path.join(REPO, root, rel)) as f:
         tree = ast.parse(f.read())
     return [n.name for n in tree.body
             if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
@@ -114,6 +115,20 @@ def test_public_name_has_counterpart(rel):
         if not callable(getattr(mod, RENAMED.get(key, name), None)):
             missing.append(name)
     assert not missing, f"{rel}: no counterpart in {mod.__name__}: {missing}"
+
+
+# the JAX side's scripts at the repository's root -> the port's modules
+SCRIPTS = {"bench.py": "acr_tpu_torch.bench"}
+
+
+@pytest.mark.parametrize("script", sorted(SCRIPTS))
+def test_script_has_counterpart(script):
+    mod = importlib.import_module(SCRIPTS[script])
+    names = _public(script, root="")
+    assert names, script
+    missing = [n for n in names if not callable(getattr(mod, n, None))]
+    assert not missing, f"{script}: no counterpart in {mod.__name__}: " \
+        f"{missing}"
 
 
 def test_left_out_names_exist_in_jax():
