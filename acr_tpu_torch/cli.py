@@ -32,7 +32,7 @@ def main(argv=None):
     logging.info("config: %s (device %s)", cfg, device)
     with ConfigSession(cfg):
         app = ACRApp(cfg, device=device)
-        with profile_trace(cfg.profile_dir, app.pipeline.device):
+        with profile_trace(cfg.profile_dir, app.pipeline.device, app.timer):
             return app.run()
 
 

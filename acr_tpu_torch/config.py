@@ -124,7 +124,7 @@ class Config:
     jit_translation_solve: bool = True           # closed-form weighted-LS on device (reference: host solvePnPRansac)
     raster_overflow_every: int = 0               # probe binned-raster tile capacity every N rendered
                                                  # frames (0 = off); overflows are logged as warnings
-    profile_dir: Optional[str] = None            # jax.profiler trace output
+    profile_dir: Optional[str] = None            # torch.profiler Chrome trace, with the acr.* spans
 
     # free-form overflow for YAML keys that aren't first-class fields
     extras: Dict[str, Any] = field(default_factory=dict)

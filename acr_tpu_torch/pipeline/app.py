@@ -72,7 +72,7 @@ from acr_tpu_torch.pipeline.temporal import (
     smooth_sequence,
     smooth_two_hands,
 )
-from acr_tpu_torch.utils.meters import StageTimer
+from acr_tpu_torch.utils.meters import SpanTimer
 
 log = logging.getLogger("acr_tpu_torch")
 
@@ -147,7 +147,7 @@ class ACRApp:
         self._need_maps = "centermap" in self.aux_items
         self.filter_state = init_two_hand_filter(self.pipeline.device)
         self.output_dir = cfg.output_dir or "./demos_outputs/"
-        self.timer = StageTimer()
+        self.timer = SpanTimer()
         self._frame_idx = 0
         self._probe_frame_idx = 0
         self._imshow_warned = False
@@ -160,23 +160,29 @@ class ACRApp:
         """Forward, OneEuro + refine with ``-t``, the device render (with
         ``renderer='tpu'``) and capacity probe, issued on the device;
         nothing is read back but the banded render's gate. The planar
-        (4, S, S) RGBA rides under ``_rgba``."""
+        (4, S, S) RGBA rides under ``_rgba``. The three stages are the
+        timer's ``issue.forward``, ``issue.smooth`` and ``issue.render``."""
+        timer = self.timer
         with torch.no_grad():
-            out = self.pipeline(meta["image"], meta["offsets"],
-                                return_maps=return_maps)
+            with timer.stage("issue.forward"):
+                out = self.pipeline(meta["image"], meta["offsets"],
+                                    return_maps=return_maps)
             if self.cfg.temporal_optimization:
-                # per-hand gating by the detection flag happens on device
-                self.filter_state, poses, betas = smooth_two_hands(
-                    self.filter_state, out["poses"][0], out["betas"][0],
-                    out["detection_flag"][0], self.cfg.smooth_coeff)
-                out["poses"], out["betas"] = poses[None], betas[None]
-                out.update(self.pipeline.refine(out["poses"], out["betas"],
-                                                out["cam"], meta["offsets"]))
+                with timer.stage("issue.smooth"):
+                    # per-hand gating by the detection flag happens on device
+                    self.filter_state, poses, betas = smooth_two_hands(
+                        self.filter_state, out["poses"][0], out["betas"][0],
+                        out["detection_flag"][0], self.cfg.smooth_coeff)
+                    out["poses"], out["betas"] = poses[None], betas[None]
+                    out.update(self.pipeline.refine(
+                        out["poses"], out["betas"], out["cam"],
+                        meta["offsets"]))
             if self.visualizer is not None and self.cfg.renderer == "tpu":
-                out["_rgba"] = self.visualizer.render_rgba_device(out)
-                if probe:
-                    out["_raster_overflow"] = \
-                        self.visualizer.overflow_probe_device(out)
+                with timer.stage("issue.render"):
+                    out["_rgba"] = self.visualizer.render_rgba_device(out)
+                    if probe:
+                        out["_raster_overflow"] = \
+                            self.visualizer.overflow_probe_device(out)
         return out
 
     def _render_chunk(self, viz, out: Dict[str, torch.Tensor], probe: bool
@@ -305,10 +311,10 @@ class ACRApp:
     def process_frame(self, bgr_frame: np.ndarray, path: str
                       ) -> Dict[str, list]:
         """Full per-frame stack; returns the reference-format results dict."""
-        with self.timer.stage("preprocess"):
+        with self.timer.stage("preprocess", path):
             meta = img_preprocess(bgr_frame, path,
                                   input_size=self.cfg.input_size)
-        with self.timer.stage("device_step"):
+        with self.timer.stage("device_step", path):
             out = self.device_step(meta)
         self.last_output = out              # the frame's host outputs
         overflow = out.pop("_raster_overflow", None)
@@ -325,14 +331,14 @@ class ACRApp:
 
         results = reorganize_results(out, [path])
         if self.visualizer is not None:
-            with self.timer.stage("render"):
+            with self.timer.stage("render", path):
                 if "_rgba" in out:
                     rendered = self.visualizer.compose_on_frame(
                         out["_rgba"], bgr_frame, meta, planar=True)
                 else:
                     rendered = self.visualizer.render_on_frame(
                         bgr_frame, out, meta)
-            with self.timer.stage("encode"):
+            with self.timer.stage("encode", path):
                 self._emit_frame(rendered, path)
             if self.aux_items:
                 self._emit_aux(out, meta, path)
@@ -561,7 +567,7 @@ class ACRApp:
                     self._emit_frame(frame, path)
                     continue
                 one = {key: v[k:k + 1] for key, v in chunk.items()}
-                with self.timer.stage("render"):
+                with self.timer.stage("render", path):
                     if rgba is not None:
                         rendered = self.visualizer.compose_on_frame(
                             rgba[k], frame, meta, planar=True)
@@ -582,13 +588,18 @@ class ACRApp:
             self._emit_frame(rendered, "0")
 
         loop = StreamingLoop(self, on_result=show)
+        # the p50 log reads the loop's stream.frame spans
+        recording, self.timer.recording = self.timer.recording, True
         try:
             loop.run(cap)
         finally:
             cap.stop()
-            if loop.latencies:
+            self.timer.recording = recording
+            frame_ms = [(t1 - t0) * 1e3 for name, _, _, t0, t1
+                        in self.timer.spans() if name == "stream.frame"]
+            if frame_ms:
                 log.info("webcam p50 frame latency: %.1f ms",
-                         loop.p50_latency_ms())
+                         float(np.percentile(frame_ms, 50)))
 
     def run(self) -> Optional[Dict]:
         mode = self.cfg.demo_mode

@@ -10,9 +10,20 @@ around PyTorch's asynchronous launches:
 ``ACRApp.stream_step`` issues frame k's work (forward, OneEuro, refine,
 render) without a readback, and the host composites frame k-1 while the
 device runs. With ``renderer='native'`` the host draws frame k-1 there
-too, through the C++ z-buffer. The render's gate reads two counts to the host, which
-waits for frame k's forward to finish before the render is issued: that
-read limits the overlap (a later perf item).
+too, through the C++ z-buffer. Below 1024 px the render is issued with
+no host read; at 1024 px and above the banded render's gate reads two
+maxima to the host (``viz.raster.banded_fits``), which waits for frame
+k's forward before the render is issued. Issuing a frame still waits on
+the stream at any size, in copies from host memory: the frame's image and
+offsets, and the index lists with which ``models/mano.py`` gathers joints
+(ten a hand), in the forward's MANO and again in the refine's.
+
+Each stage of a turn is a stage of ``app.timer`` (a ``SpanTimer``) with
+the frame's index as its id: ``stream.read``, ``stream.preprocess`` and
+``stream.issue`` for frame k, ``stream.readback``, ``stream.composite``
+and ``stream.deliver`` for frame k-1, and ``stream.frame``, from the
+frame's read to its delivery, kept in memory only since it spans two
+turns.
 
 A frame source is anything with ``read() -> Optional[ndarray]``
 (WebcamVideoStream, OpenCVCapture, or ``SyntheticSource`` in tests and
@@ -25,8 +36,6 @@ import time
 from typing import Callable, Optional, Protocol
 
 import numpy as np
-
-from acr_tpu_torch.utils.meters import AverageMeter
 
 
 class FrameSource(Protocol):
@@ -60,47 +69,53 @@ class StreamingLoop:
         self.app = app
         self.on_result = on_result
         self.max_frames = max_frames
-        self.latency = AverageMeter()
         self.latencies = []
 
     def run(self, source: FrameSource) -> int:
         """Pipelined loop; returns the number of frames processed."""
         from acr_tpu_torch.pipeline.preprocess import img_preprocess
 
-        app, cfg = self.app, self.app.cfg
-        inflight = None          # (t_start, frame, meta, device outputs)
+        app, cfg, timer = self.app, self.app.cfg, self.app.timer
+        inflight = None          # (t_start, frame id, frame, meta, device outputs)
         count = 0
         while self.max_frames is None or count < self.max_frames:
-            frame = source.read()
+            with timer.stage("stream.read", count):
+                frame = source.read()
             if frame is None:
                 break
             t0 = time.perf_counter()
-            meta = img_preprocess(frame, str(count), input_size=cfg.input_size)
-            out = app.stream_step(meta)
+            with timer.stage("stream.preprocess", count):
+                meta = img_preprocess(frame, str(count),
+                                      input_size=cfg.input_size)
+            with timer.stage("stream.issue", count):
+                out = app.stream_step(meta)
             if inflight is not None:
                 self._finish(*inflight)
-            inflight = (t0, frame, meta, out)
+            inflight = (t0, count, frame, meta, out)
             count += 1
         if inflight is not None:
             self._finish(*inflight)
         return count
 
-    def _finish(self, t0, frame, meta, out):
-        """The frame's one readback, then composite, deliver, latency."""
-        out = self.app.unpack_stream(out)
+    def _finish(self, t0, fid, frame, meta, out):
+        """The frame's one readback, then composite, latency, deliver."""
+        app, timer = self.app, self.app.timer
+        with timer.stage("stream.readback", fid):
+            out = app.unpack_stream(out)
         rendered = frame
-        if out["detection_flag"].any() and self.app.visualizer is not None:
-            if "_rgba" in out:
-                rendered = self.app.visualizer.compose_on_frame(
-                    out["_rgba"], frame, meta, planar=True)
-            else:               # renderer='native': drawn on the host
-                rendered = self.app.visualizer.render_on_frame(
-                    frame, out, meta)
-        dt = (time.perf_counter() - t0) * 1000.0
-        self.latency.update(dt)
-        self.latencies.append(dt)
+        if out["detection_flag"].any() and app.visualizer is not None:
+            with timer.stage("stream.composite", fid):
+                if "_rgba" in out:
+                    rendered = app.visualizer.compose_on_frame(
+                        out["_rgba"], frame, meta, planar=True)
+                else:           # renderer='native': drawn on the host
+                    rendered = app.visualizer.render_on_frame(
+                        frame, out, meta)
+        self.latencies.append((time.perf_counter() - t0) * 1000.0)
         if self.on_result is not None:
-            self.on_result(rendered, out)
+            with timer.stage("stream.deliver", fid):
+                self.on_result(rendered, out)
+        timer.add_span("stream.frame", t0, time.perf_counter(), fid)
 
     def p50_latency_ms(self) -> float:
         return float(np.percentile(self.latencies, 50)) if self.latencies else 0.0

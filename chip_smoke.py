@@ -1348,7 +1348,7 @@ def phase_times_throughput(card, weights, frames_dir, app):
     from acr_tpu_torch.pipeline import infer
     from acr_tpu_torch.pipeline.app import ACRApp
     from acr_tpu_torch.pipeline.temporal import smooth_sequence
-    from acr_tpu_torch.utils.meters import StageTimer
+    from acr_tpu_torch.utils.meters import SpanTimer
     times = {}
     image, offsets = _chunk_inputs(frames_dir, CHUNK)
     for t in (True, False):
@@ -1372,7 +1372,7 @@ def phase_times_throughput(card, weights, frames_dir, app):
     # again, its timer reset
     from acr_tpu_torch.io.writers import collect_image_list
     files = collect_image_list(frames_dir)
-    app.timer = StageTimer()
+    app.timer = SpanTimer()
     t0 = time.perf_counter()
     app._run_batched(files)
     wall = time.perf_counter() - t0
@@ -1380,7 +1380,7 @@ def phase_times_throughput(card, weights, frames_dir, app):
     say("times", f"folder mode, {len(files)} warmed {FRAME_HW[0]}x"
         f"{FRAME_HW[1]} frames at val_batch_size {CHUNK} (decode, chunk "
         f"step, readback, composite, write): {len(files) / wall:.3f} "
-        f"frames/s ({wall:.3f} s); StageTimer avg ms {json.dumps(report)} "
+        f"frames/s ({wall:.3f} s); SpanTimer avg ms {json.dumps(report)} "
         f"[{card}]")
 
     dev = torch.device("cuda")
@@ -1731,7 +1731,7 @@ def phase_precision_throughput(card, weights, frames_dir, out_dir):
     import numpy as np
     from acr_tpu_torch.io.writers import collect_image_list
     from acr_tpu_torch.pipeline.app import ACRApp
-    from acr_tpu_torch.utils.meters import StageTimer
+    from acr_tpu_torch.utils.meters import SpanTimer
     t0 = time.perf_counter()
     files = collect_image_list(frames_dir)
     runs = {}
@@ -1759,7 +1759,7 @@ def phase_precision_throughput(card, weights, frames_dir, out_dir):
         step = lambda: app.chunk_step(image, offsets)
         t = cuda_ms(step, iters=3, reps=3, warmup=1)
         n_syncs, _ = count_syncs(step)
-        app.timer = StageTimer()
+        app.timer = SpanTimer()
         w0 = time.perf_counter()
         app._run_batched(files)
         fps = len(files) / (time.perf_counter() - w0)

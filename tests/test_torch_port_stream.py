@@ -6,7 +6,9 @@ hands plausible and inside the frame) with both hands forced detected
 (centermap_conf_thresh below every score). Per frame, the reference-
 format results agree to float16 resolution and the RGBA renders as in
 ``tests/test_torch_port_app.py``: the same coverage, shading to 1e-3.
-The OneEuro states agree to 1e-5.
+The OneEuro states agree to 1e-5. The port's loop also yields its
+``SpanTimer`` spans, once per frame, into the records and a profiler's
+trace while the timer records, and nothing while it does not.
 """
 
 import os
@@ -103,6 +105,76 @@ def test_streaming_loop_matches_jax(flat, tmp_path):
     assert len(g_state) == len(w_state) == 24
     for g, w in zip(g_state, w_state):
         np.testing.assert_allclose(g, np.asarray(w), atol=1e-5)
+
+
+# the loop's spans and the step's, each once per frame
+FRAME_SPANS = {"stream.preprocess": None, "stream.issue": None,
+               "issue.forward": "stream.issue", "issue.smooth": "stream.issue",
+               "issue.render": "stream.issue", "stream.readback": None,
+               "stream.composite": None, "stream.deliver": None,
+               "stream.frame": None}
+
+
+def _span_app(flat, tmp_path):
+    return ACRApp(Config(**_kw(tmp_path, "spans")), params=from_flax(flat),
+                  device="cpu")
+
+
+def test_streaming_loop_spans(flat, tmp_path):
+    app = _span_app(flat, tmp_path)
+    app.timer.recording = True
+    got = []
+    assert StreamingLoop(app, on_result=lambda img, out: got.append(
+        img)).run(SyntheticSource(3)) == 3
+    spans = app.timer.spans()
+    # stream.read also times the read that ends the source
+    assert [f for n, _, f, _, _ in spans if n == "stream.read"] == [0, 1, 2, 3]
+    for name, parent in FRAME_SPANS.items():
+        mine = [s for s in spans if s[0] == name]
+        assert [f for _, _, f, _, _ in mine] == [0, 1, 2], name
+        assert {p for _, p, _, _, _ in mine} == {parent}, name
+    for k in range(3):
+        (frame,) = [s for s in spans if s[0] == "stream.frame" and s[2] == k]
+        for name, _, f, t0, t1 in spans:
+            if f == k and name not in ("stream.read", "stream.frame"):
+                assert frame[3] <= t0 <= t1 <= frame[4], name
+    assert app.timer.report()["stream.frame"]["count"] == 3
+
+
+def test_streaming_loop_spans_in_trace(flat, tmp_path):
+    import json
+    from acr_tpu_torch.utils.profiling import profile_trace
+    app = _span_app(flat, tmp_path)
+    d = tmp_path / "trace"
+    with profile_trace(str(d), "cpu", app.timer):
+        assert StreamingLoop(app).run(SyntheticSource(2)) == 2
+    (name,) = os.listdir(d)
+    with open(d / name) as f:
+        events = json.load(f)["traceEvents"]
+    notes = [e for e in events if e.get("cat") == "user_annotation"]
+    issues = [e for e in notes if e["name"] == "acr.stream.issue"]
+    forwards = [e for e in notes if e["name"] == "acr.issue.forward"]
+    assert len(issues) == len(forwards) == 2
+    for outer, inner in zip(sorted(issues, key=lambda e: e["ts"]),
+                            sorted(forwards, key=lambda e: e["ts"])):
+        assert outer["ts"] <= inner["ts"]
+        assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+    # stream.frame spans two turns: in memory only
+    assert "acr.stream.frame" not in {e["name"] for e in notes}
+    assert len([s for s in app.timer.spans() if s[0] == "stream.frame"]) == 2
+
+
+def test_streaming_loop_off_records_nothing(flat, tmp_path, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("record_function called with recording off")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    app = _span_app(flat, tmp_path)
+    loop = StreamingLoop(app, on_result=lambda img, out: None)
+    assert loop.run(SyntheticSource(2)) == 2
+    assert app.timer.spans() == []
+    assert len(loop.latencies) == 2
+    counts = {k: v["count"] for k, v in app.timer.report().items()}
+    assert counts == {**{name: 2 for name in FRAME_SPANS}, "stream.read": 3}
 
 
 @pytest.fixture(scope="module")
