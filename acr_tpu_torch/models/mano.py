@@ -11,7 +11,7 @@ kinematics runs the 3-level x 5-finger batched 4x4 chains.
 from __future__ import annotations
 
 import os
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,16 +23,33 @@ from acr_tpu_torch.utils.device import resolve_device
 TIPS_RIGHT = (745, 317, 444, 556, 673)
 TIPS_LEFT = (745, 317, 445, 556, 673)
 
-# FK levels (reference: mano/manolayer.py:191-193)
-LEV1 = (1, 4, 7, 10, 13)
-LEV2 = (2, 5, 8, 11, 14)
-LEV3 = (3, 6, 9, 12, 15)
+# FK levels (reference: mano/manolayer.py:191-193): joints 1, 4, .., 13,
+# then 2, 5, .., 14, then 3, 6, .., 15, as slices, which index a device
+# tensor without an index tensor
+LEV1 = slice(1, None, 3)
+LEV2 = slice(2, None, 3)
+LEV3 = slice(3, None, 3)
 # transform reorder back to joint order (reference: mano/manolayer.py:222)
 REORDER_16 = (0, 1, 6, 11, 2, 7, 12, 3, 8, 13, 4, 9, 14, 5, 10, 15)
 # output joint order: wrist, thumb..pinky chains with tips interleaved
 # (reference: mano/manolayer.py:254)
 REORDER_21 = (0, 13, 14, 15, 16, 1, 2, 3, 17, 4, 5, 6, 18,
               10, 11, 12, 19, 7, 8, 9, 20)
+
+# the reorders as index tensors, one per (order, device)
+_DEVICE_INDEX: Dict[Tuple[Tuple[int, ...], torch.device], torch.Tensor] = {}
+
+
+def device_index(order: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``order`` as an int64 index tensor on ``device``, built on the
+    first call for that device. A Python list indexing a device tensor is
+    copied from pageable host memory, with a host wait, on every call,
+    and a CUDA graph cannot hold that copy."""
+    idx = _DEVICE_INDEX.get((order, device))
+    if idx is None:
+        idx = torch.tensor(order, dtype=torch.long, device=device)
+        _DEVICE_INDEX[(order, device)] = idx
+    return idx
 
 
 class ManoModel(NamedTuple):
@@ -120,17 +137,17 @@ def skinning_transforms(rotmats: torch.Tensor, j_rest: torch.Tensor):
     """3-level forward kinematics: rotmats (B, 16, 3, 3), rest joints
     (B, 16, 3) -> the joints' world transforms G (B, 16, 4, 4) in joint
     order, and the skinning transforms G' = G - pack(G @ [j; 0])."""
-    lev1, lev2, lev3 = list(LEV1), list(LEV2), list(LEV3)
     root_j = j_rest[:, 0]
     g_root = _with_translation(rotmats[:, 0], root_j)        # (B, 4, 4)
-    rel1 = _with_translation(rotmats[:, lev1], j_rest[:, lev1] - root_j[:, None])
-    rel2 = _with_translation(rotmats[:, lev2], j_rest[:, lev2] - j_rest[:, lev1])
-    rel3 = _with_translation(rotmats[:, lev3], j_rest[:, lev3] - j_rest[:, lev2])
+    rel1 = _with_translation(rotmats[:, LEV1], j_rest[:, LEV1] - root_j[:, None])
+    rel2 = _with_translation(rotmats[:, LEV2], j_rest[:, LEV2] - j_rest[:, LEV1])
+    rel3 = _with_translation(rotmats[:, LEV3], j_rest[:, LEV3] - j_rest[:, LEV2])
 
     g1 = torch.einsum("bij,bfjk->bfik", g_root, rel1)
     g2 = torch.einsum("bfij,bfjk->bfik", g1, rel2)
     g3 = torch.einsum("bfij,bfjk->bfik", g2, rel3)
-    g_all = torch.cat([g_root[:, None], g1, g2, g3], dim=1)[:, list(REORDER_16)]
+    g_all = torch.cat([g_root[:, None], g1, g2, g3], dim=1)[
+        :, device_index(REORDER_16, rotmats.device)]
 
     # remove rest-pose joint location: G' = G - pack(G @ [j; 0])
     j_h = torch.cat([j_rest, torch.zeros_like(j_rest[..., :1])], dim=-1)
@@ -146,7 +163,8 @@ def joints_and_align(g_all: torch.Tensor, verts: torch.Tensor,
     the reference order) and the root alignment on ``center_idx``.
     Returns (verts, joints21, center or None)."""
     joints16 = g_all[:, :, :3, 3]
-    joints21 = torch.cat([joints16, verts[:, tips]], dim=1)[:, list(REORDER_21)]
+    joints21 = torch.cat([joints16, verts[:, tips]], dim=1)[
+        :, device_index(REORDER_21, verts.device)]
     center = None
     if center_idx is not None:
         center = joints21[:, center_idx:center_idx + 1]

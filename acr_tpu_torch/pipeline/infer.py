@@ -59,6 +59,7 @@ from acr_tpu_torch.parallel.mesh import (
     split_batch,
 )
 from acr_tpu_torch.parser.parse import parse_outputs
+from acr_tpu_torch.pipeline import graphs
 from acr_tpu_torch.pipeline.project import (
     estimate_translation_ls,
     kp2d_to_org_image,
@@ -287,7 +288,10 @@ class ACRPipeline:
     def _replicate(self) -> None:
         """``replicas``: the lead (this pipeline's own net and assets),
         then a copy of the network (bf16 or int8 as served) and the MANO
-        assets for each other local replica of the mesh."""
+        assets for each other local replica of the mesh. Also the forward's
+        graphs, none captured yet: a graph reads the network it was
+        captured on."""
+        self._graph = graphs.StepGraph("forward", self.device)
         lead = Replica(self.device, self.net, self.mano_l, self.mano_r,
                        self.merge_params)
         self.replicas = [lead]
@@ -350,20 +354,47 @@ class ACRPipeline:
     def __call__(self, image, offsets, return_maps: bool = False
                  ) -> Dict[str, torch.Tensor]:
         """image uint8 (B, S, S, 3), offsets float32 (B, 10); numpy or
-        tensors. Returns device tensors (on the lead replica under a mesh)
-        without synchronizing, except for the gather across processes."""
+        tensors. Returns device tensors (on the lead replica under a mesh).
+        On a card at batch 1 without a mesh the forward replays its CUDA
+        graph (``pipeline.graphs``), its inputs staged through pinned
+        memory, with no host wait; elsewhere it runs eagerly, and a host
+        input's copy to a card waits for the stream, as does the gather
+        across processes."""
         image = torch.as_tensor(image)
         offsets = torch.as_tensor(offsets, dtype=torch.float32)
+        why = self.graph_block(image.shape[0])
+        if why is None:
+            return self._graph(
+                return_maps,
+                lambda d: self._forward(d["image"], d["offsets"], return_maps),
+                {"image": image, "offsets": offsets})
+        graphs.count_eager("forward", why)
         if self.mesh is not None:
             return self.run_sharded(
                 lambda rep, img, off: forward_fn(
                     rep.net, rep.mano_l, rep.mano_r, img, off, self.cfg,
                     return_maps=return_maps, merge_params=rep.merge_params),
                 image, offsets)
-        return forward_fn(self.net, self.mano_l, self.mano_r,
-                          image.to(self.device), offsets.to(self.device),
+        return self._forward(image.to(self.device), offsets.to(self.device),
+                             return_maps)
+
+    def _forward(self, image: torch.Tensor, offsets: torch.Tensor,
+                 return_maps: bool) -> Dict[str, torch.Tensor]:
+        return forward_fn(self.net, self.mano_l, self.mano_r, image, offsets,
                           self.cfg, return_maps=return_maps,
                           merge_params=self.merge_params)
+
+    def graph_block(self, batch: int) -> Optional[str]:
+        """Why a step of ``batch`` frames runs eagerly (``cpu``, ``mesh`` or
+        ``batch``), or None where its stages replay CUDA graphs: on a card,
+        without a mesh, one frame at a time (``pipeline.graphs``)."""
+        if self.device.type != "cuda":
+            return "cpu"
+        if self.mesh is not None:
+            return "mesh"
+        if batch != 1:
+            return "batch"
+        return None
 
     @torch.no_grad()
     def run_sharded(self, fn: Callable[[Replica, torch.Tensor, torch.Tensor],
@@ -393,7 +424,8 @@ class ACRPipeline:
 
     @torch.no_grad()
     def refine(self, poses, betas, cam, offsets) -> Dict[str, torch.Tensor]:
-        """``mano_refine_fn`` on the pipeline's device, without a sync."""
+        """``mano_refine_fn`` on the pipeline's device; a host input's
+        copy to a card waits for the stream."""
         dev = self.device
         return mano_refine_fn(
             self.mano_l, self.mano_r, torch.as_tensor(poses).to(dev),

@@ -10,13 +10,15 @@ around PyTorch's asynchronous launches:
 ``ACRApp.stream_step`` issues frame k's work (forward, OneEuro, refine,
 render) without a readback, and the host composites frame k-1 while the
 device runs. With ``renderer='native'`` the host draws frame k-1 there
-too, through the C++ z-buffer. Below 1024 px the render is issued with
-no host read; at 1024 px and above the banded render's gate reads two
-maxima to the host (``viz.raster.banded_fits``), which waits for frame
-k's forward before the render is issued. Issuing a frame still waits on
-the stream at any size, in copies from host memory: the frame's image and
-offsets, and the index lists with which ``models/mano.py`` gathers joints
-(ten a hand), in the forward's MANO and again in the refine's.
+too, through the C++ z-buffer. On a card the step's forward, OneEuro
+with the refine, and the render below 1024 px each replay a CUDA graph
+(``pipeline.graphs``) from the second frame on, the frame's image and
+offsets staged through pinned memory: issuing a frame is a handful of
+launches and waits for nothing. At 1024 px and above the render runs
+eagerly, since the banded render's gate reads two maxima to the host
+(``viz.raster.banded_fits``), which waits for frame k's forward before
+the render is issued. The readback's ``torch.cuda.synchronize()`` waits
+for the whole device, frame k's work included.
 
 Each stage of a turn is a stage of ``app.timer`` (a ``SpanTimer``) with
 the frame's index as its id: ``stream.read``, ``stream.preprocess`` and

@@ -771,6 +771,7 @@ def phase_stream(weights, out_dir):
     counts are zeroed just before each run and read just after it."""
     import numpy as np
     import torch
+    from acr_tpu_torch.pipeline import graphs
     from acr_tpu_torch.pipeline.app import ACRApp
     from acr_tpu_torch.pipeline.streaming import StreamingLoop, SyntheticSource
     from acr_tpu_torch.viz import raster as R
@@ -784,10 +785,12 @@ def phase_stream(weights, out_dir):
         loop = StreamingLoop(app, on_result=lambda img, out: results.append(
             (img, out)))
         rc.reset_launch_counts()
+        graphs.reset_counts()
         t0 = time.perf_counter()
         n = loop.run(SyntheticSource(N_STREAM, *FRAME_HW, seed=0))
         wall = time.perf_counter() - t0
         launches[size] = dict(rc.LAUNCHES)
+        steps = dict(graphs.COUNTS)
         scale = 4 if size > 1000 else 1
         for k, (img, out) in enumerate(results):
             probe = R.render_overflow_probe(
@@ -815,8 +818,17 @@ def phase_stream(weights, out_dir):
             raise AssertionError("the OneEuro state did not advance")
         say("stream", f"{n} frames of {FRAME_HW[0]}x{FRAME_HW[1]} through "
             f"StreamingLoop, -t, render {size} px, in {wall:.2f} s (first "
-            f"frames include set-up); launches {launches[size]}; loop p50 "
-            f"{loop.p50_latency_ms():.3f} ms")
+            f"frames include set-up); launches {launches[size]}; step graphs "
+            f"{steps}; loop p50 {loop.p50_latency_ms():.3f} ms")
+        # the first frame warms each graph up, the second captures it
+        render = ({"render.eager.render_size": n} if size >= 1024 else
+                  {"render.eager.warmup": 1, "render.capture": 1,
+                   "render.replay": n - 1})
+        want = {"forward.eager.warmup": 1, "forward.capture": 1,
+                "forward.replay": n - 1, "smooth.eager.warmup": 1,
+                "smooth.capture": 1, "smooth.replay": n - 1, **render}
+        if steps != want:
+            raise AssertionError(f"step graphs {steps}, expected {want}")
     if not launches[HI]["raster_banded"]:
         raise AssertionError("the 2048 px stream never launched raster_banded")
     if not launches[SIZE]["raster_binned"]:
