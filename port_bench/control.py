@@ -20,6 +20,12 @@ limits (``judge.verdict``):
 
 One JSON line per seed: {"seed", "workload", "sound", "metrics",
 "controls"}, with ``sound`` and each control as {"correct", "numbers"}.
+
+The architecture's steps come from the cell's architecture module
+(``harness.manifest.load_arch``): the control's reference, its outputs
+in the program's shape (``as_outputs``) and the judge. The faults are
+the harness's: they touch only the app's stream and chunk steps and the
+mesh (``verts``) that every MANO-based architecture's outputs carry.
 """
 
 import argparse
@@ -95,27 +101,18 @@ def faults(cell):
 def reduced_control(stash) -> dict:
     """The reference one precision down in the program's place: the
     numbers the judge gives it."""
-    from port_bench.harness.judge import Reference, judge_sequence, new_numbers
     run, ref = stash["run"], stash["ref"]
-    f = run.fields
-    ctrl = Reference(run.weights, f, os.path.join(manifest.ROOT, "model_data", "mano"),
-                     run.device, tf32=True, tail_bf16=True)
-    numbers = new_numbers()
-    w = f["centermap_size"]
+    f, arch = run.fields, run.arch
+    ctrl = arch.Reference(run.weights, f, os.path.join(manifest.ROOT, "model_data", "mano"),
+                          run.device, tf32=True, tail_bf16=True)
+    numbers = arch.new_numbers()
     for seq in stash["seen"]["sequences"]:
         out = ctrl.sequence(seq["frames"])
-        outputs = [{"verts": out["verts"][t], "j3d": out["j3d"][t],
-                    "pj2d_org": out["pj2d_org"][t],
-                    "cam_trans": out["cam_trans"][t],
-                    "centers": np.stack(
-                        [out["flat"][t] % w, out["flat"][t] // w], -1),
-                    "centers_conf": out["score"][t], "params": out["params"][t],
-                    "detection_flag": out["detected"][t]}
-                   for t in range(len(seq["frames"]))]
+        outputs = [arch.as_outputs(out, t, f) for t in range(len(seq["frames"]))]
         drawn = {t: ctrl.composite(out, t, outputs[t], seq["frames"][t])
                  for t in seq["composites"]}
-        judge_sequence(ref, seq["frames"], outputs, seq["judged"], drawn,
-                       numbers, w)
+        arch.judge_sequence(ref, seq["frames"], outputs, seq["judged"], drawn,
+                            numbers, f)
     return numbers
 
 

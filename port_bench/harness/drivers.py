@@ -13,7 +13,8 @@ program emits it (written, or with no visualisation handed on after its
 chunk's readback); the first emission after the close ends the clip,
 and no clip starts after it. A clip with no emission at all is an error.
 
-Both record the program's outputs of every frame for the judge, and with
+Both record the program's outputs of every frame for the judge (the keys
+of the cell's architecture's ``KEEP``), and with
 ``--trace 1`` the harness's spans around the calls into the app's layers
 and the profiler's sub-window. Nothing is written into the program: the
 hooks wrap methods of the one app instance.
@@ -34,8 +35,6 @@ import numpy as np
 from port_bench.harness import frames as F
 from port_bench.harness.trace import Tracer
 
-KEEP = ("verts", "j3d", "pj2d_org", "cam_trans", "centers", "centers_conf",
-        "params", "detection_flag")
 COMPOSITES = 5
 
 
@@ -98,9 +97,9 @@ class PipelineSpan:
         return getattr(self._inner, name)
 
 
-def _host(out) -> Dict[str, np.ndarray]:
+def _host(out, keep) -> Dict[str, np.ndarray]:
     return {k: (out[k].cpu().numpy() if hasattr(out[k], "cpu")
-                else np.asarray(out[k])) for k in KEEP}
+                else np.asarray(out[k])) for k in keep}
 
 
 def _install_spans(app, obs: Obs) -> Span:
@@ -111,7 +110,7 @@ def _install_spans(app, obs: Obs) -> Span:
 
 def webcam(run) -> Dict:
     from acr_tpu_torch.pipeline.streaming import StreamingLoop
-    tr, obs = run.traffic, run.obs
+    tr, obs, keep = run.traffic, run.obs, run.arch.KEEP
     pool = F.smooth_frames(run.seed, tr["pool"], tr["height"], tr["width"],
                           run.device)
     run.mark("inputs")
@@ -137,7 +136,7 @@ def webcam(run) -> Dict:
     def on_result(rendered, out):
         cap = state["source"].pending.popleft()
         idx = len(outputs)
-        outputs.append({k: v[0] for k, v in _host(out).items()})
+        outputs.append({k: v[0] for k, v in _host(out, keep).items()})
         history.append(cap.frame_id)
         t = time.perf_counter()
         if cap.index >= 0:
@@ -240,7 +239,7 @@ def _folder(run, tr, obs, tmp, init_filter) -> Dict:
 
     def chunk_hook(image, offsets):
         out = chunk_step(image, offsets)
-        chunks[state["run"]].append({k: out[k] for k in KEEP})
+        chunks[state["run"]].append({k: out[k] for k in run.arch.KEEP})
         return out
 
     def emit_hook(frame, path):
@@ -311,7 +310,7 @@ def _folder(run, tr, obs, tmp, init_filter) -> Dict:
         names = sorted(os.listdir(folder_))
         outs = []
         for ch in chunks[r]:
-            host = _host(ch)
+            host = _host(ch, run.arch.KEEP)
             outs.extend({k: v[j] for k, v in host.items()}
                         for j in range(host["verts"].shape[0]))
         import cv2

@@ -1,9 +1,8 @@
-"""The work of a frame, counted from shapes on the frozen reference, and
-the card's peaks: the yardstick of the roofline and MFU metrics.
+"""The work of the kernels every MANO-based architecture shares, counted
+from shapes, and the card's peaks: the yardstick of the roofline and MFU
+metrics. A network's FLOPs per frame are its architecture's
+(``archs/<architecture>.py`` ``flops_per_frame``).
 
-- ``network_flops``: ``FlopCounterMode`` over the reference network on
-  the meta device (convolutions, matrix products, counting a
-  multiply-add as two), per frame.
 - B1, the binned rasterizer: the face table (26 float rows per face) read
   once and the outputs (face id, two barycentrics and 16 attribute planes
   per pixel) written once; the edge test (23 operations) of every (face,
@@ -15,8 +14,6 @@ the card's peaks: the yardstick of the roofline and MFU metrics.
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 
@@ -31,18 +28,6 @@ EDGE_OPS = 23
 FACE_ROWS = 26
 PIXEL_OUT_BYTES = 19 * 4
 MANO_VERTS, MANO_COEF = 778, 146
-
-
-@functools.lru_cache(maxsize=None)
-def network_flops(input_size: int) -> int:
-    from torch.utils.flop_counter import FlopCounterMode
-    from port_bench.reference import network
-    P = network.Params()
-    image = torch.empty((1, input_size, input_size, 3), dtype=torch.uint8,
-                        device="meta")
-    with FlopCounterMode(display=False) as counter:
-        network.forward(P, image)
-    return int(counter.get_total_flops())
 
 
 def raster_work(screen_faces: torch.Tensor, n_faces_padded: int,

@@ -5,11 +5,18 @@
 Set-up (from process start): the seeded weights on the card, the app of
 the cell's configuration, the traffic's inputs, a warm-up over the
 cell's own shapes. Then the measured window, then the judge: the frozen
-reference recomputes what the program produced (``harness.judge``). The
-last line on standard output is the result, with the numbers judged and
-their limits under ``checks``; the same numbers are the last lines on
-standard error. Exits 3 without a result where no card is visible, 4
-where JAX or the JAX package was loaded.
+reference recomputes what the program produced. The last line on
+standard output is the result, with the numbers judged and their limits
+under ``checks``; the same numbers are the last lines on standard error.
+Exits 3 without a result where no card is visible, 4 where JAX or the
+JAX package was loaded.
+
+The architecture's steps come from the module that the configuration's
+``architecture`` names (``cell["arch"]``, ``harness.manifest.load_arch``):
+the weights, the output keys kept, the reference, the judge's numbers
+and the FLOPs per frame. The harness's: the app, the driver and its
+window, the trace, the rasterizer's and MANO kernel's work
+(``_raster_work``, ``harness.work``), the verdict and the result line.
 """
 
 import time
@@ -45,8 +52,7 @@ class Run:
                  overrides=None, app_hook=None):
         import torch
         from port_bench.harness.drivers import Obs
-        from port_bench.harness.weights import make_weights
-        self.cell, self.traffic = cell, cell["traffic"]
+        self.cell, self.traffic, self.arch = cell, cell["traffic"], cell["arch"]
         self.seed, self.seconds, self.trace = seed, seconds, trace
         self.device, self.clock0 = torch.device(device), clock0
         self.obs = Obs()
@@ -56,8 +62,8 @@ class Run:
         self.fields.update(overrides or {})
         self.obs.precision = self.fields["model_precision"]
         dtype = torch.bfloat16 if self.obs.precision == "bf16" else torch.float32
-        self.weights = make_weights(seed, self.device, dtype,
-                                    self.fields["input_size"])
+        self.weights = self.arch.make_weights(seed, self.device, dtype,
+                                              self.fields)
         self.app_hook = app_hook
         self.marks = []
         self.mark("weights")
@@ -99,7 +105,7 @@ def run_cell(cell, seed, seconds, trace, device="cuda", clock0=None,
     import torch
     from port_bench.harness import work
     from port_bench.harness.drivers import DRIVERS, say
-    from port_bench.harness.judge import Reference, judge_sequence, new_numbers, verdict
+    from port_bench.harness.judge import verdict
     run = Run(cell, seed, seconds, trace, device,
               time.perf_counter() if clock0 is None else clock0,
               overrides, app_hook)
@@ -120,15 +126,15 @@ def run_cell(cell, seed, seconds, trace, device="cuda", clock0=None,
     if run.device.type == "cuda":
         torch.cuda.empty_cache()
 
-    f = run.fields
-    ref = Reference(run.weights, f, os.path.join(manifest.ROOT, "model_data", "mano"),
-                    run.device)
-    numbers = new_numbers()
+    f, arch = run.fields, run.arch
+    ref = arch.Reference(run.weights, f, os.path.join(manifest.ROOT, "model_data", "mano"),
+                         run.device)
+    numbers = arch.new_numbers()
     pairs = []
     t_judge = time.perf_counter()
     for seq in seen["sequences"]:
-        out = judge_sequence(ref, seq["frames"], seq["outputs"], seq["judged"],
-                             seq["composites"], numbers, f["centermap_size"])
+        out = arch.judge_sequence(ref, seq["frames"], seq["outputs"], seq["judged"],
+                                  seq["composites"], numbers, f)
         for t in seq["judged"][-4:]:
             pairs.append(_raster_work(out, t, ref.faces, f))
     n_judged = sum(len(s["judged"]) for s in seen["sequences"])
@@ -137,7 +143,7 @@ def run_cell(cell, seed, seconds, trace, device="cuda", clock0=None,
     correct, checks = verdict(numbers, limits, n_judged)
     peaks = work.PEAKS.get(dev["kind"])
     obs.peaks = peaks
-    obs.work = {"flops_per_frame": work.network_flops(f["input_size"])}
+    obs.work = {"flops_per_frame": arch.flops_per_frame(f)}
     if peaks is not None and pairs:
         obs.work["raster_bound_s"] = sum(
             work.bound_s(b, o, peaks) for b, o in pairs) / len(pairs)
@@ -160,7 +166,9 @@ def run_cell(cell, seed, seconds, trace, device="cuda", clock0=None,
 
 
 def _raster_work(ref_out, t, faces, f):
-    """B1's work on the reference's geometry of frame ``t``."""
+    """B1's work on the reference's geometry of frame ``t``: it needs the
+    reference's outputs ``verts`` and ``cam_trans`` and its ``.faces``,
+    which every MANO-based architecture provides."""
     import numpy as np
     import torch
     from port_bench.harness import work
@@ -200,17 +208,20 @@ def main(argv=None):
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = p.parse_args(argv)
-    cell = manifest.cell(manifest.load_manifest(), args.workload)
     import torch
     print(f"port_bench: torch imported at {time.perf_counter() - CLOCK0:.2f} s",
           file=sys.stderr)
+    # the card's context before the architecture's module and what it
+    # imports (cv2, the reference): the order the cells were measured in
+    if torch.cuda.is_available():
+        torch.zeros(1, device="cuda")
+    cell = manifest.cell(manifest.load_manifest(), args.workload)
     need = cell["workload"]["chips"]
     if not torch.cuda.is_available() or torch.cuda.device_count() < need:
         print(f"port_bench: the cell needs {need} CUDA card(s); "
               f"torch.cuda.is_available() is {torch.cuda.is_available()}, "
               f"device_count {torch.cuda.device_count()}", file=sys.stderr)
         return 3
-    torch.zeros(1, device="cuda")
     print(f"port_bench: CUDA ready at {time.perf_counter() - CLOCK0:.2f} s; "
           f"{host_state()}", file=sys.stderr)
     result = run_cell(cell, args.seed, args.seconds, bool(args.trace),

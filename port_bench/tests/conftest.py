@@ -1,8 +1,6 @@
 """Shared fixtures of the benchmark's own tests (CPU; ``cuda``-marked
 tests decide inside the test whether a card is present)."""
 
-import copy
-
 import pytest
 
 from port_bench.harness import manifest
@@ -33,7 +31,8 @@ def small_cell():
                  "end_to_end": [FRAMES_PER_S] + [
                      m for m in b["end_to_end"] if m["name"] == "setup_s"],
                  "per_layer": []}
-        cell = copy.deepcopy(manifest.cell(b, name))
+        # the configuration and traffic are read anew from their files
+        cell = manifest.cell(b, name)
         cell["traffic"].update(SMALL_TRAFFIC)
         cell["config"]["model"].update(SMALL_MODEL)
         return cell

@@ -1,12 +1,19 @@
 """BENCHMARK.json against the contract's shapes, and the harness finding
-configurations, traffic mixes and metrics by name alone."""
+configurations, architectures, traffic mixes and metrics by name alone."""
 
+import ast
+import glob
+import hashlib
 import json
 import os
 import re
 import shutil
+import sys
 
+import numpy as np
 import pytest
+
+import port_bench.reference
 
 from port_bench.harness import manifest
 
@@ -44,7 +51,13 @@ def test_keys_names_and_units():
                for m in b["end_to_end"])
     for c in b["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
-        assert c["file"].startswith("port_bench/") and c["reduced"] == []
+        assert c["file"].startswith("port_bench/")
+        # the model-configs guide's cuts of depth and share are listed here
+        assert isinstance(c["reduced"], list) and len(c["reduced"]) <= 16
+        assert all(isinstance(k, str) and NAME.match(k) for k in c["reduced"])
+        with open(os.path.join(manifest.ROOT, c["file"])) as f:
+            arch = json.load(f)["architecture"]
+        assert NAME.match(arch) and os.path.exists(manifest.arch_path(arch)), c
 
 
 def test_every_cell_reports_what_its_layers_move():
@@ -70,12 +83,92 @@ def test_check_fits_the_time_of_a_full_check():
     assert runs * (b["run_seconds"] + 60) + 24 * 2 * 90 + 1200 <= 43200
 
 
+# a second architecture as it would come: its module, its reference and
+# a configuration that names it (a mesh linear in the frame's mean colour)
+TOY_REFERENCE = '''"""A toy hand-mesh reference."""
+import numpy as np
+
+
+def mesh(frames, w):
+    x = np.stack([f.reshape(-1, 3).mean(0) for f in frames])
+    return np.einsum("tc,hcv->thv", x, w).reshape(len(frames), 2, -1, 3)
+'''
+
+TOY_ARCH = '''"""A toy architecture, held to the interface of load_arch."""
+import numpy as np
+import torch
+
+from port_bench.reference import toy_mesh
+
+KEEP = ("verts", "cam_trans", "detection_flag")
+
+
+def make_weights(seed, device, dtype, fields):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return {"w": torch.randn(2, 3, fields["vertices"] * 3, generator=gen,
+                             device=device).to(dtype)}
+
+
+class Reference:
+    def __init__(self, weights, fields, mano_dir, device, tf32=False,
+                 tail_bf16=False):
+        self.w = weights["w"].float().cpu().numpy()
+        self.faces = np.zeros((2, 1, 3), np.int64)
+
+    def sequence(self, frames, picks=None):
+        verts = toy_mesh.mesh(frames, self.w)
+        return {"verts": verts, "cam_trans": np.zeros(verts.shape[:2] + (3,)),
+                "detection_flag": np.ones(verts.shape[:2], bool)}
+
+    def composite(self, ref_out, t, geometry, bgr):
+        return bgr
+
+
+def new_numbers():
+    return {"verts_m": 0.0}
+
+
+def judge_sequence(ref, frames, outputs, judged, composites, numbers, fields):
+    out = ref.sequence(frames)
+    for t in judged:
+        numbers["verts_m"] = max(numbers["verts_m"], float(
+            np.abs(outputs[t]["verts"] - out["verts"][t]).max()))
+    return out
+
+
+def flops_per_frame(fields):
+    return 2 * 2 * 3 * fields["vertices"] * 3
+
+
+def as_outputs(ref_out, t, fields):
+    return {k: ref_out[k][t] for k in KEEP}
+'''
+
+
+def _digests(root):
+    out = {}
+    for path in glob.glob(os.path.join(str(root), "**", "*"), recursive=True):
+        if os.path.isfile(path) and "__pycache__" not in path:
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, str(root))] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
 def test_new_files_need_no_edit(tmp_path, monkeypatch):
-    """A configuration, a traffic mix and a metric dropped into place, and
-    their entries, are found without an edit to any file there."""
+    """A configuration, an architecture with its reference, a traffic mix
+    and a metric dropped into place, and their entries, are found without
+    an edit to any file there."""
+    import torch
+    from port_bench.harness.judge import verdict
+    real_dir = manifest.BENCH_DIR
+    real = _digests(real_dir)
+    manifest.load_arch("acr")   # ACR's references load from their own place
     bench_dir = tmp_path / "port_bench"
-    for sub in ("configs", "traffic", "metrics"):
-        shutil.copytree(os.path.join(manifest.BENCH_DIR, sub), bench_dir / sub)
+    for sub in ("configs", "archs", "reference", "traffic", "metrics"):
+        shutil.copytree(os.path.join(manifest.BENCH_DIR, sub), bench_dir / sub,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    copied = _digests(bench_dir)
     cfg = json.loads((bench_dir / "configs" / "acr_w32_fp32.json").read_text())
     cfg["name"] = "acr_w32_fp32_far"
     (bench_dir / "configs" / "acr_w32_fp32_far.json").write_text(json.dumps(cfg))
@@ -84,11 +177,25 @@ def test_new_files_need_no_edit(tmp_path, monkeypatch):
     (bench_dir / "traffic" / "webcam_60fps.json").write_text(json.dumps(tr))
     (bench_dir / "metrics" / "frames_seen.webcam.py").write_text(
         "def read(obs):\n    return obs.delivered\n")
+    (bench_dir / "reference" / "toy_mesh.py").write_text(TOY_REFERENCE)
+    (bench_dir / "archs" / "toy_mesh.py").write_text(TOY_ARCH)
+    (bench_dir / "configs" / "toy_mesh_fp32.json").write_text(json.dumps(
+        {"name": "toy_mesh_fp32", "architecture": "toy_mesh",
+         "model": {"input_size": 8, "vertices": 4}, "limits": {"verts_m": 0.0}}))
+    (bench_dir / "configs" / "no_arch.json").write_text(json.dumps(
+        {"name": "no_arch", "model": {}, "limits": {}}))
     b = _bench()
     b["configs"].append(dict(b["configs"][0], name="acr_w32_fp32_far",
                              file="port_bench/configs/acr_w32_fp32_far.json"))
+    b["configs"].append(dict(b["configs"][0], name="toy_mesh_fp32",
+                             file="port_bench/configs/toy_mesh_fp32.json",
+                             reduced=["vertices"]))
     b["workloads"].append({"name": "webcam_fp32_60fps", "config": "acr_w32_fp32_far",
                            "traffic": "webcam_60fps", "chips": 1, "why": "a test"})
+    b["workloads"].append({"name": "toy_mesh_tracking", "config": "toy_mesh_fp32",
+                           "traffic": "webcam_tracking", "chips": 1, "why": "a test"})
+    b["workloads"].append({"name": "no_arch_tracking", "config": "no_arch",
+                           "traffic": "webcam_tracking", "chips": 1, "why": "a test"})
     for m in b["end_to_end"]:
         if m["name"] in ("frame_latency_p50_ms", "frame_latency_p95_ms"):
             m["workloads"].append("webcam_fp32_60fps")
@@ -97,9 +204,13 @@ def test_new_files_need_no_edit(tmp_path, monkeypatch):
                            "layer": "a test", "moves": "frame_latency_p50_ms",
                            "workloads": ["webcam_fp32_60fps"]})
     monkeypatch.setattr(manifest, "BENCH_DIR", str(bench_dir))
+    # a new reference file is found by the package, as in the repository
+    monkeypatch.setattr(port_bench.reference, "__path__",
+                        [str(bench_dir / "reference")])
     cell = manifest.cell(b, "webcam_fp32_60fps")
     assert cell["traffic"]["fps"] == 60
     assert cell["config"]["name"] == "acr_w32_fp32_far"
+    assert "centers" in cell["arch"].KEEP
     assert [m["name"] for m in cell["per_layer"]] == ["frames_seen.webcam"]
 
     class Obs:
@@ -110,3 +221,60 @@ def test_new_files_need_no_edit(tmp_path, monkeypatch):
     assert got["frame_latency_p50_ms"]["value"] == 1.0
     with pytest.raises(KeyError):
         manifest.cell(b, "no_such_cell")
+    with pytest.raises(KeyError, match="no_arch.json"):
+        manifest.cell(b, "no_arch_tracking")
+
+    try:
+        toy = manifest.cell(b, "toy_mesh_tracking")
+        arch, fields = toy["arch"], toy["config"]["model"]
+        assert arch.__file__ == str(bench_dir / "archs" / "toy_mesh.py")
+        assert arch.KEEP == ("verts", "cam_trans", "detection_flag")
+        assert arch.flops_per_frame(fields) == 144
+        weights = arch.make_weights(7, "cpu", torch.float32, fields)
+        ref = arch.Reference(weights, fields, None, "cpu")
+        frames = [np.full((4, 4, 3), v, np.uint8) for v in (10, 20, 30)]
+        out = ref.sequence(frames)
+        outputs = [arch.as_outputs(out, t, fields) for t in range(3)]
+        for shift, want in ((0.0, True), (1e-4, False)):
+            numbers = arch.new_numbers()
+            arch.judge_sequence(ref, frames, [dict(o, verts=o["verts"] + shift)
+                                              for o in outputs],
+                                [0, 1, 2], {}, numbers, fields)
+            assert verdict(numbers, toy["config"]["limits"], 3)[0] is want
+    finally:
+        sys.modules.pop("port_bench.reference.toy_mesh", None)
+        if hasattr(port_bench.reference, "toy_mesh"):
+            del port_bench.reference.toy_mesh
+    # every file that was there is as it was, in the copy and in place
+    after = _digests(bench_dir)
+    assert {k: after[k] for k in copied} == copied == {k: real[k] for k in copied}
+    assert _digests(real_dir) == real
+
+
+def _imports(tree):
+    """Every module an ``import`` names, and ``pkg.name`` for each name a
+    ``from pkg import name`` takes."""
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            out.add(node.module)
+            out |= {f"{node.module}.{a.name}" for a in node.names}
+    return out
+
+
+def test_harness_names_nothing_of_an_architecture():
+    """The generic code reaches the network and the parser only through
+    the cell's architecture module."""
+    files = [os.path.join(manifest.BENCH_DIR, n) for n in ("run.py", "control.py")]
+    files += glob.glob(os.path.join(manifest.BENCH_DIR, "harness", "*.py"))
+    assert len(files) > 4
+    for path in files:
+        with open(path) as f:
+            src = f.read()
+        names = _imports(ast.parse(src))
+        for mod in ("port_bench.reference.network", "port_bench.reference.parse"):
+            assert mod not in names, (path, mod)
+        for word in ("centermap_size", "centers_conf", "param_shapes"):
+            assert word not in src, (path, word)

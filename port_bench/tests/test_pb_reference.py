@@ -2,13 +2,22 @@
 ``correct`` coming out false when the timed path is broken underneath or
 replaced by the reduced-precision control."""
 
+import collections
+
 import pytest
 import torch
 
 from port_bench import control
-from port_bench.harness.weights import make_weights
+from port_bench.harness import manifest
 from port_bench.reference import network
 from port_bench.run import run_cell
+
+ACR = manifest.load_arch("acr")
+
+
+def make_weights(seed, device, input_size):
+    return ACR.make_weights(seed, device, torch.float32,
+                            {"input_size": input_size})
 
 
 def test_reference_network_matches_the_port_forward():
@@ -75,6 +84,52 @@ def test_half_of_the_batch_left_out_is_not_correct(small_cell):
     assert not r["correct"]
 
 
+def test_run_and_control_take_the_architecture_from_the_cell(small_cell):
+    """``run_cell`` and ``control.reduced_control`` reach the weights, the
+    kept output keys, the reference, the judge and the FLOP count only
+    through the cell's architecture module."""
+    cell = small_cell("webcam_fp32_tracking")
+    arch = cell["arch"] = manifest.load_arch("acr")    # a fresh module to spy on
+    calls, returned = collections.Counter(), {}
+
+    def spy(name):
+        real = getattr(arch, name)
+
+        def called(*a, **k):
+            calls[name] += 1
+            returned[name] = real(*a, **k)
+            return returned[name]
+        return called
+    for name in ("make_weights", "Reference", "new_numbers", "judge_sequence",
+                 "as_outputs"):
+        setattr(arch, name, spy(name))
+
+    class Keep(tuple):
+        def __iter__(self):
+            calls["KEEP"] += 1
+            return super().__iter__()
+    arch.KEEP = Keep(arch.KEEP)
+
+    def flops_per_frame(fields):
+        calls["flops_per_frame"] += 1
+        return 12345
+    arch.flops_per_frame = flops_per_frame
+    stash = {}
+    r = _run(cell, stash=stash)
+    assert r["correct"], r["checks"]
+    run = stash["run"]
+    assert run.weights is returned["make_weights"]
+    assert stash["ref"] is returned["Reference"]
+    assert run.obs.work["flops_per_frame"] == 12345
+    assert calls["KEEP"] >= r["attempted"] > 0
+    assert calls["judge_sequence"] == calls["new_numbers"] == 1
+    assert "as_outputs" not in calls
+    control.reduced_control(stash)
+    assert returned["Reference"].tail_bf16 and returned["Reference"].tf32
+    assert calls["Reference"] == calls["judge_sequence"] == calls["new_numbers"] == 2
+    assert calls["as_outputs"] == len(stash["seen"]["sequences"][0]["frames"])
+
+
 def test_reduced_precision_control_is_not_correct(small_cell):
     """``port_bench.control``'s readings of one seed: the sound run is
     correct, and the reduced-precision control and each fault of the cell
@@ -91,7 +146,6 @@ def test_reduced_precision_control_is_not_correct(small_cell):
 def test_a_short_run_on_the_card_is_correct():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from port_bench.harness import manifest
     cell = manifest.cell(manifest.load_manifest(), "webcam_fp32_tracking")
     r = run_cell(cell, 2 ** 31 + 1, 3.0, False, "cuda")
     assert r["correct"], r["checks"]

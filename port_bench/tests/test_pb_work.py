@@ -2,12 +2,13 @@
 
 import torch
 
-from port_bench.harness import work
+from port_bench.harness import manifest, work
 
 
 def test_network_flops_per_frame_at_512():
     # FlopCounterMode over the frozen reference, 512 px, one frame
-    assert work.network_flops(512) == 102119284736
+    acr = manifest.load_arch("acr")
+    assert acr.flops_per_frame({"input_size": 512}) == 102119284736
 
 
 def test_b1_bytes_once_and_edge_pairs():
