@@ -3,7 +3,8 @@
 A copy of ``acr_tpu/config.py`` for the PyTorch port, with ``yaml``
 imported only when a YAML file is read. The port imports nothing of the
 JAX package, so it carries its own copy; ``tests/test_torch_port_host.py``
-holds the field names and defaults equal to the original's. The port
+holds the field names and defaults equal to the original's, but for the
+port's own fields (``PORT_ONLY``). The port
 runs a slice of these options: ``acr_tpu_torch.pipeline.infer.check_slice``
 raises ``NotImplementedError`` for every value it does not run.
 
@@ -28,6 +29,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# the fields the port has and acr_tpu's Config has not
+PORT_ONLY = ("architecture",)
 
 
 @dataclass
@@ -126,6 +130,10 @@ class Config:
                                                  # frames (0 = off); overflows are logged as warnings
     profile_dir: Optional[str] = None            # torch.profiler Chrome trace, with the acr.* spans
 
+    # ------ port only: not in acr_tpu's Config (PORT_ONLY) ------
+    architecture: str = "acr"                    # acr | hamer: ACR's heads, or HaMeR
+                                                 # (pipeline/hamer.py) on ACR's detections
+
     # free-form overflow for YAML keys that aren't first-class fields
     extras: Dict[str, Any] = field(default_factory=dict)
 
@@ -213,6 +221,16 @@ class Config:
         else:
             raise ValueError(f"Rot_type must be 6D|angular, "
                              f"got {self.Rot_type!r}")
+        if self.architecture not in ("acr", "hamer"):
+            raise ValueError(f"architecture must be acr|hamer, "
+                             f"got {self.architecture!r}")
+        if self.architecture == "hamer" and (
+                self.model_precision != "fp32" or self.quantize != "none"
+                or self.data_parallel > 1 or not self.jit_translation_solve):
+            raise ValueError(
+                "architecture='hamer' runs in fp32 on one device with the "
+                "device translation: model_precision='fp32', quantize="
+                "'none', data_parallel=1, jit_translation_solve=True")
         if not self.kernel_sizes:
             raise ValueError("kernel_sizes must be non-empty (the last "
                              "entry selects the NMS pool kernel)")

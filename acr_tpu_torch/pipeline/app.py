@@ -20,6 +20,14 @@ the render; the step then waits for nothing on the host. The smooth
 graph keeps the OneEuro state in static tensors and advances it in
 place.
 
+With ``architecture='hamer'`` ACR's pipeline is the detector and
+``regressor`` (``pipeline.hamer.Regressor``) runs HaMeR on its hands, a
+stage of its own between the forward and OneEuro (``issue.regress``, a
+fourth CUDA graph at batch 1); OneEuro then filters HaMeR's poses and
+betas, and the pipeline's ``refine``, given HaMeR's boxes, runs HaMeR's
+MANO and camera tail. The weights dict carries HaMeR's tensors under
+``hamer.`` beside ACR's; without them HaMeR serves seeded stand-ins.
+
 Folder and video mode at ``val_batch_size > 1`` take the throughput
 path, ``_run_batched``: a producer thread decodes and preprocesses the
 next chunk of frames while the device runs ``chunk_step`` on the current
@@ -70,7 +78,7 @@ from acr_tpu_torch.io.writers import (
     save_video,
     split_frame,
 )
-from acr_tpu_torch.pipeline import graphs
+from acr_tpu_torch.pipeline import graphs, hamer
 from acr_tpu_torch.pipeline.infer import ACRPipeline, forward_fn
 from acr_tpu_torch.pipeline.preprocess import img_preprocess
 from acr_tpu_torch.pipeline.results import reorganize_results
@@ -121,22 +129,35 @@ class ACRApp:
         if cfg.renderer == "native" or not cfg.jit_translation_solve:
             from acr_tpu_torch.io import native
             native.library()            # raises when it cannot be built
+        hamer_params = None
+        if cfg.architecture == "hamer" and params is not None:
+            hamer_params = {k[len("hamer."):]: v for k, v in params.items()
+                            if k.startswith("hamer.")}
+            params = {k: v for k, v in params.items()
+                      if not k.startswith("hamer.")}
         self.pipeline = ACRPipeline(cfg, params=params, device=device,
                                     merge_params=merge_params,
                                     devices=devices)
         mesh = self.pipeline.mesh
+        # HaMeR regresses both hands from ACR's detections (the detector)
+        self.regressor = None
+        faces = self.pipeline.faces
+        if cfg.architecture == "hamer":
+            self.regressor = hamer.Regressor(cfg, hamer_params,
+                                             self.pipeline.device)
+            faces = hamer.mirrored_faces(faces[1])
         self.visualizer = None
         self._replica_viz = {}
         if cfg.save_visualization_on_img and cfg.renderer != "none":
             from acr_tpu_torch.viz.visualizer import Visualizer
-            self.visualizer = Visualizer(cfg, self.pipeline.faces,
+            self.visualizer = Visualizer(cfg, faces,
                                          device=self.pipeline.device)
             # the per-frame render of each replica's shard, on its device
             self._replica_viz = {self.pipeline.device: self.visualizer}
             for rep in self.pipeline.replicas[1:]:
                 if rep.device not in self._replica_viz:
                     self._replica_viz[rep.device] = Visualizer(
-                        cfg, self.pipeline.faces, device=rep.device)
+                        cfg, faces, device=rep.device)
         # the chunk step renders on the device unless the frames are drawn
         # on the host or wait for the host translation solve
         self._render_in_step = (self.visualizer is not None
@@ -178,19 +199,26 @@ class ACRApp:
 
     def _issue(self, meta: Dict, probe: bool, return_maps: bool = False
                ) -> Dict[str, torch.Tensor]:
-        """Forward, OneEuro + refine with ``-t``, the device render (with
-        ``renderer='tpu'``) and capacity probe, issued on the device;
-        nothing is read back but the banded render's gate. The planar
-        (4, S, S) RGBA rides under ``_rgba``. The three stages are the
-        timer's ``issue.forward``, ``issue.smooth`` and ``issue.render``;
-        each replays its CUDA graph where ``graph_block`` finds none of
-        its reasons, the render only below 1024 px."""
+        """Forward, with HaMeR its regressor, OneEuro + refine with ``-t``,
+        the device render (with ``renderer='tpu'``) and capacity probe,
+        issued on the device; nothing is read back but the banded render's
+        gate. The planar (4, S, S) RGBA rides under ``_rgba``. The stages
+        are the timer's ``issue.forward``, ``issue.regress`` (HaMeR),
+        ``issue.smooth`` and ``issue.render``; each replays its CUDA graph
+        where ``graph_block`` finds none of its reasons, the render only
+        below 1024 px."""
         timer = self.timer
         with torch.no_grad():
             with timer.stage("issue.forward"):
                 out = self.pipeline(meta["image"], meta["offsets"],
                                     return_maps=return_maps)
             why = self.pipeline.graph_block(out["verts"].shape[0])
+            if self.regressor is not None:
+                with timer.stage("issue.regress"):
+                    out.update(self.regressor.issue(
+                        self.pipeline.refine, meta["image"], out,
+                        torch.as_tensor(meta["offsets"], dtype=torch.float32),
+                        why, timer.stage))
             if self.cfg.temporal_optimization:
                 with timer.stage("issue.smooth"):
                     offsets = torch.as_tensor(meta["offsets"],
@@ -218,13 +246,15 @@ class ACRApp:
                 ) -> Dict[str, torch.Tensor]:
         """OneEuro on the frame's two hands, advancing ``filter_state``
         (per-hand gating by the detection flag happens on the device),
-        then the MANO refine on the smoothed parameters."""
+        then the MANO refine on the smoothed parameters (HaMeR's tail,
+        where ``out`` holds its ``boxes``)."""
         self.filter_state, poses, betas = smooth_two_hands(
             self.filter_state, out["poses"][0], out["betas"][0],
             out["detection_flag"][0], self.cfg.smooth_coeff)
         res = {"poses": poses[None], "betas": betas[None]}
         res.update(self.pipeline.refine(res["poses"], res["betas"],
-                                        out["cam"], offsets))
+                                        out["cam"], offsets,
+                                        boxes=out.get("boxes")))
         return res
 
     def _smooth_graphed(self, out: Dict[str, torch.Tensor],
@@ -247,10 +277,12 @@ class ACRApp:
             return res
 
         self.filter_state = static
-        return self._smooth_graph(
-            None, smooth, {"poses": out["poses"], "betas": out["betas"],
-                           "detection_flag": out["detection_flag"],
-                           "cam": out["cam"], "offsets": offsets})
+        inputs = {"poses": out["poses"], "betas": out["betas"],
+                  "detection_flag": out["detection_flag"],
+                  "cam": out["cam"], "offsets": offsets}
+        if "boxes" in out:
+            inputs["boxes"] = out["boxes"]
+        return self._smooth_graph(None, smooth, inputs)
 
     def _render(self, out: Dict[str, torch.Tensor], probe: bool
                 ) -> Dict[str, torch.Tensor]:
@@ -309,13 +341,20 @@ class ACRApp:
                 offsets = torch.as_tensor(offsets, dtype=torch.float32).to(dev)
                 out = self.pipeline(image, offsets,
                                     return_maps=self._need_maps)
+                if self.regressor is not None:
+                    with self.timer.stage("issue.regress"):
+                        out.update(self.regressor.issue(
+                            self.pipeline.refine, image, out, offsets,
+                            self.pipeline.graph_block(image.shape[0]),
+                            self.timer.stage))
                 if self.cfg.temporal_optimization:
                     self.filter_state, poses, betas = smooth_sequence(
                         self.filter_state, out["poses"], out["betas"],
                         out["detection_flag"], self.cfg.smooth_coeff)
                     out["poses"], out["betas"] = poses, betas
                     out.update(self.pipeline.refine(poses, betas, out["cam"],
-                                                    offsets))
+                                                    offsets,
+                                                    boxes=out.get("boxes")))
                 if render:
                     out = self._render_chunk(self.visualizer, out, probe)
             # the probe is reduced over the whole (gathered) chunk
@@ -671,12 +710,16 @@ class ACRApp:
         finally:
             cap.stop()
             self.timer.recording = recording
-            frame_ms = [(t1 - t0) * 1e3 for name, _, _, t0, t1
-                        in self.timer.spans() if name == "stream.frame"]
+            spans = self.timer.spans()
+            frame_ms = [(t1 - t0) * 1e3 for name, _, _, t0, t1 in spans
+                        if name == "stream.frame"]
+            regress_ms = [(t1 - t0) * 1e3 for name, _, _, t0, t1 in spans
+                          if name == "issue.regress"]
             if frame_ms:
-                log.info("webcam p50 frame latency: %.1f ms; step graphs %s",
+                log.info("webcam p50 frame latency: %.1f ms%s; step graphs %s",
                          float(np.percentile(frame_ms, 50)),
-                         dict(graphs.COUNTS))
+                         f" (issue.regress p50 {np.percentile(regress_ms, 50):.2f}"
+                         " ms)" if regress_ms else "", dict(graphs.COUNTS))
 
     def run(self) -> Optional[Dict]:
         mode = self.cfg.demo_mode

@@ -25,7 +25,8 @@ assets, faces, the OneEuro state) where it lay at capture, in place.
 
 Where a stage may engage is decided by its owner from what it can
 observe: a CUDA device, no mesh, batch 1 and, for the render, a size
-below 1024 px (``ACRPipeline.__call__``, ``ACRApp._issue``). ``COUNTS``
+below 1024 px (``ACRPipeline.__call__``, ``ACRApp._issue``,
+``pipeline.hamer.Regressor.issue``). ``COUNTS``
 counts the captures, the replays and the eager steps with their reasons,
 beside ``mano_kernel.LAUNCHES`` and ``raster_cuda.LAUNCHES``, which a
 replay advances by the kernel launches it holds.
@@ -154,8 +155,9 @@ def _view(buffer: torch.Tensor, at: int, nbytes: int, dtype: torch.dtype,
 
 
 class StepGraph:
-    """One stage of the step (``name``: forward, smooth or render) on a
-    CUDA device, through a graph per key once it has run eagerly once."""
+    """One stage of the step (``name``: forward, regress, smooth or
+    render) on a CUDA device, through a graph per key once it has run
+    eagerly once."""
 
     def __init__(self, name: str, device: torch.device):
         self.name = name

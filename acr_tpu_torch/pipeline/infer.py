@@ -59,7 +59,7 @@ from acr_tpu_torch.parallel.mesh import (
     split_batch,
 )
 from acr_tpu_torch.parser.parse import parse_outputs
-from acr_tpu_torch.pipeline import graphs
+from acr_tpu_torch.pipeline import graphs, hamer
 from acr_tpu_torch.pipeline.project import (
     estimate_translation_ls,
     kp2d_to_org_image,
@@ -111,18 +111,21 @@ class ManoAuto(NamedTuple):
 PALLAS_MANO_MIN_BATCH = 8
 
 
-def _apply_mano(mano, poses, betas, center_idx):
+def _apply_mano(mano, poses, betas, center_idx, add_mean=True):
     """Dispatch on the asset type: the fused kernel path or the pure
     path. ``ManoAuto`` takes the fused path from
     ``PALLAS_MANO_MIN_BATCH`` hands per call."""
     if isinstance(mano, ManoAuto):
         if poses.shape[0] >= PALLAS_MANO_MIN_BATCH:
             return mano_forward_fused(mano.kernel, poses, betas,
-                                      center_idx=center_idx)
-        return mano_forward(mano.model, poses, betas, center_idx=center_idx)
+                                      center_idx=center_idx, add_mean=add_mean)
+        return mano_forward(mano.model, poses, betas, center_idx=center_idx,
+                            add_mean=add_mean)
     if isinstance(mano, ManoKernelData):
-        return mano_forward_fused(mano, poses, betas, center_idx=center_idx)
-    return mano_forward(mano, poses, betas, center_idx=center_idx)
+        return mano_forward_fused(mano, poses, betas, center_idx=center_idx,
+                                  add_mean=add_mean)
+    return mano_forward(mano, poses, betas, center_idx=center_idx,
+                        add_mean=add_mean)
 
 
 def _mano_projection_tail(mano_l, mano_r, poses, betas, cam, offsets,
@@ -423,11 +426,22 @@ class ACRPipeline:
         return out
 
     @torch.no_grad()
-    def refine(self, poses, betas, cam, offsets) -> Dict[str, torch.Tensor]:
+    def refine(self, poses, betas, cam, offsets, boxes=None
+               ) -> Dict[str, torch.Tensor]:
         """``mano_refine_fn`` on the pipeline's device; a host input's
-        copy to a card waits for the stream."""
+        copy to a card waits for the stream. Given ``boxes`` (B, 2, 3), the
+        crops of HaMeR's regressor, it is HaMeR's tail instead
+        (``pipeline.hamer.tail``): both hands through the right MANO
+        without the mean pose or root alignment, and the crops' cameras
+        carried to the frame."""
         dev = self.device
-        return mano_refine_fn(
-            self.mano_l, self.mano_r, torch.as_tensor(poses).to(dev),
-            torch.as_tensor(betas).to(dev), torch.as_tensor(cam).to(dev),
-            torch.as_tensor(offsets, dtype=torch.float32).to(dev), self.cfg)
+        poses, betas, cam = (torch.as_tensor(t).to(dev) for t in (poses, betas, cam))
+        offsets = torch.as_tensor(offsets, dtype=torch.float32).to(dev)
+        if boxes is not None:
+            return hamer.tail(
+                lambda p, b: _apply_mano(self.mano_r, p, b, None,
+                                         add_mean=False)[:2],
+                poses, betas, cam, torch.as_tensor(boxes).to(dev), offsets,
+                self.cfg.input_size)
+        return mano_refine_fn(self.mano_l, self.mano_r, poses, betas, cam,
+                              offsets, self.cfg)

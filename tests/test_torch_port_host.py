@@ -30,12 +30,20 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _shared(fields):
+    """A Config's fields without the port's own (``config.PORT_ONLY``)."""
+    assert tconfig.PORT_ONLY == ("architecture",)
+    return {k: v for k, v in fields.items() if k not in tconfig.PORT_ONLY}
+
+
 def test_config_fields_and_defaults_equal():
     jf = [(f.name, str(f.type)) for f in dataclasses.fields(jconfig.Config)]
-    tf = [(f.name, str(f.type)) for f in dataclasses.fields(tconfig.Config)]
+    tf = [(f.name, str(f.type)) for f in dataclasses.fields(tconfig.Config)
+          if f.name not in tconfig.PORT_ONLY]
     assert tf == jf
-    assert dataclasses.asdict(tconfig.Config()) == \
+    assert _shared(dataclasses.asdict(tconfig.Config())) == \
         dataclasses.asdict(jconfig.Config())
+    assert tconfig.Config().architecture == "acr"
 
 
 @pytest.mark.parametrize("argv", [
@@ -47,7 +55,7 @@ def test_config_fields_and_defaults_equal():
      "--FOV", "30"],
 ])
 def test_parse_args_equal(argv):
-    assert dataclasses.asdict(tconfig.parse_args(argv)) == \
+    assert _shared(dataclasses.asdict(tconfig.parse_args(argv))) == \
         dataclasses.asdict(jconfig.parse_args(argv))
 
 
