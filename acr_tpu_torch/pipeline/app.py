@@ -5,8 +5,12 @@ host preprocessing, the device step (network, parser, MANO, projection,
 OneEuro smoothing and MANO refine with ``-t``, render), ONE readback,
 then the host composite and the written or shown frame. The device step
 issues work without reading it back, apart from the banded render's
-gate at 1024 px and above (``viz.raster.banded_fits``); the readback is
-one ``torch.cuda.synchronize()`` and then ``.cpu()`` of the output dict.
+gate at 1024 px and above (``viz.raster.banded_fits``). On a card the
+stream step ends by enqueueing its outputs' copies to pinned host memory
+and an event after them, and ``unpack_stream`` waits for that event
+alone, so reading frame k-1 back never waits for frame k's device work;
+image mode, the chunks and the tools read back through ``readback``, one
+``torch.cuda.synchronize()`` and then ``.cpu()`` of the output dict.
 
 The OneEuro state (``filter_state``) is a tree of tensors on the
 pipeline's device, carried from frame to frame. JAX fuses the stream
@@ -16,9 +20,10 @@ sequence of launches, and ``unpack_stream`` the one readback. At batch 1
 on a card without a mesh (the stream and image mode) the three stages
 replay CUDA graphs (``pipeline.graphs``): the forward's inside
 ``ACRPipeline``, and here OneEuro with the refine and, below 1024 px,
-the render; the step then waits for nothing on the host. The smooth
-graph keeps the OneEuro state in static tensors and advances it in
-place.
+the render; the frame's image and offsets are staged once, at the front
+of the step (``graphs.Inputs``), and the step waits for nothing on the
+host. The smooth graph keeps the OneEuro state in static tensors and
+advances it in place.
 
 With ``architecture='hamer'`` ACR's pipeline is the detector and
 ``regressor`` (``pipeline.hamer.Regressor``) runs HaMeR on its hands, a
@@ -63,6 +68,7 @@ writes files.
 
 from __future__ import annotations
 
+import collections
 import logging
 import os
 import time
@@ -91,12 +97,50 @@ from acr_tpu_torch.utils.meters import SpanTimer
 
 log = logging.getLogger("acr_tpu_torch")
 
+# the stream steps read back by ``ACRApp.unpack_stream``: "event" on their
+# own event, "waited" of those whose event had not passed when it was
+# called, "sync" through ``readback`` (outputs not on one card)
+READBACK: Dict[str, int] = collections.Counter()
+
 
 def readback(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """One synchronisation, then every output to host numpy."""
+    """One synchronisation of the whole device, then every output to host
+    numpy: image mode's ``device_step``, the throughput path's chunks,
+    the tools, and ``unpack_stream`` where the step's outputs are not on
+    one card."""
     if any(v.is_cuda for v in out.values()):
         torch.cuda.synchronize()
     return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+class StreamOutputs(dict):
+    """A stream step's device outputs, with ``host``: a pinned host tensor
+    per output, its copy enqueued on the step's stream, and ``copied``: the
+    event recorded after those copies."""
+
+    host: Dict[str, torch.Tensor]
+    copied: torch.cuda.Event
+
+
+def _enqueue_readback(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``out`` with its copies to pinned host memory enqueued and an event
+    after them, where every output is on one card; else ``out`` as it is.
+    Each output gets its own pinned tensor from the caching host allocator,
+    so an array a caller keeps holds only its own output's memory, and no
+    later step's copy reuses it while it lives."""
+    devices = {v.device for v in out.values()}
+    device = devices.pop() if len(devices) == 1 else None
+    if device is None or device.type != "cuda":
+        return out
+    res = StreamOutputs(out)
+    res.host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                for k, v in out.items()}
+    with torch.cuda.device(device):
+        for k, v in out.items():
+            res.host[k].copy_(v, non_blocking=True)
+        res.copied = torch.cuda.Event()
+        res.copied.record()
+    return res
 
 
 def _state_map(fn, *trees):
@@ -185,6 +229,7 @@ class ACRApp:
         self.filter_state = init_two_hand_filter(self.pipeline.device)
         # the b1 step's smooth and render stages through CUDA graphs
         # (pipeline.graphs), and the OneEuro state the smooth graph reads
+        self._inputs = graphs.Inputs(self.pipeline.device)
         self._smooth_graph = graphs.StepGraph("smooth", self.pipeline.device)
         self._render_graph = graphs.StepGraph("render", self.pipeline.device)
         self._graph_state = None
@@ -206,23 +251,26 @@ class ACRApp:
         are the timer's ``issue.forward``, ``issue.regress`` (HaMeR),
         ``issue.smooth`` and ``issue.render``; each replays its CUDA graph
         where ``graph_block`` finds none of its reasons, the render only
-        below 1024 px."""
+        below 1024 px. With the graphs, the image and offsets are staged
+        to the device once, first (``graphs.Inputs``), and every stage
+        reads them there."""
         timer = self.timer
+        image = torch.as_tensor(meta["image"])
+        offsets = torch.as_tensor(meta["offsets"], dtype=torch.float32)
+        why = self.pipeline.graph_block(image.shape[0])
         with torch.no_grad():
             with timer.stage("issue.forward"):
-                out = self.pipeline(meta["image"], meta["offsets"],
-                                    return_maps=return_maps)
-            why = self.pipeline.graph_block(out["verts"].shape[0])
+                if why is None:
+                    staged = self._inputs({"image": image, "offsets": offsets})
+                    image, offsets = staged["image"], staged["offsets"]
+                out = self.pipeline(image, offsets, return_maps=return_maps)
             if self.regressor is not None:
                 with timer.stage("issue.regress"):
                     out.update(self.regressor.issue(
-                        self.pipeline.refine, meta["image"], out,
-                        torch.as_tensor(meta["offsets"], dtype=torch.float32),
-                        why, timer.stage))
+                        self.pipeline.refine, image, out, offsets, why,
+                        timer.stage))
             if self.cfg.temporal_optimization:
                 with timer.stage("issue.smooth"):
-                    offsets = torch.as_tensor(meta["offsets"],
-                                              dtype=torch.float32)
                     if why is None:
                         out.update(self._smooth_graphed(out, offsets))
                     else:
@@ -375,13 +423,27 @@ class ACRApp:
 
     def stream_step(self, meta: Dict) -> Dict[str, torch.Tensor]:
         """The streaming loop's step: the device work of one frame, with
-        the capacity probe in every step when it is on, and no readback.
+        the capacity probe in every step when it is on, and no host wait.
+        On a card the outputs' copies to pinned host memory are enqueued
+        behind that work, with an event after them (``StreamOutputs``).
         Read it back with :meth:`unpack_stream`."""
-        return self._issue(meta, probe=self.cfg.raster_overflow_every > 0)
+        return _enqueue_readback(
+            self._issue(meta, probe=self.cfg.raster_overflow_every > 0))
 
     def unpack_stream(self, out: Dict[str, torch.Tensor]) -> Dict:
-        """The stream step's one readback; logs the probe."""
-        out = readback(out)
+        """The stream step's one readback: a wait for the step's own event
+        and numpy arrays over its pinned copies, else ``readback``; logs
+        the probe."""
+        copied = getattr(out, "copied", None)
+        if copied is None:
+            READBACK["sync"] += 1
+            out = readback(out)
+        else:
+            READBACK["event"] += 1
+            if not copied.query():
+                READBACK["waited"] += 1
+                copied.synchronize()
+            out = {k: v.numpy() for k, v in out.host.items()}
         self._consume_overflow_probe(out, n_frames=1)
         return out
 
@@ -716,10 +778,11 @@ class ACRApp:
             regress_ms = [(t1 - t0) * 1e3 for name, _, _, t0, t1 in spans
                           if name == "issue.regress"]
             if frame_ms:
-                log.info("webcam p50 frame latency: %.1f ms%s; step graphs %s",
-                         float(np.percentile(frame_ms, 50)),
+                log.info("webcam p50 frame latency: %.1f ms%s; step graphs %s; "
+                         "readbacks %s", float(np.percentile(frame_ms, 50)),
                          f" (issue.regress p50 {np.percentile(regress_ms, 50):.2f}"
-                         " ms)" if regress_ms else "", dict(graphs.COUNTS))
+                         " ms)" if regress_ms else "", dict(graphs.COUNTS),
+                         dict(READBACK))
 
     def run(self) -> Optional[Dict]:
         mode = self.cfg.demo_mode

@@ -10,7 +10,8 @@ launches into a CUDA graph once and replays it with one launch per call:
   built); the second captures and replays; every later call replays;
 * the inputs are copied into static device tensors that the graph reads:
   host tensors through a pinned buffer with ``non_blocking=True``, device
-  tensors device to device;
+  tensors device to device; ``Inputs`` stages a step's host inputs once,
+  at the front of the step, for every stage after it to read on the device;
 * inside the graph the outputs are copied into one byte buffer, each at
   an offset aligned as a fresh allocation; after a replay one copy of it
   gives the caller fresh tensors, views of that copy. A returned dict is
@@ -27,9 +28,10 @@ Where a stage may engage is decided by its owner from what it can
 observe: a CUDA device, no mesh, batch 1 and, for the render, a size
 below 1024 px (``ACRPipeline.__call__``, ``ACRApp._issue``,
 ``pipeline.hamer.Regressor.issue``). ``COUNTS``
-counts the captures, the replays and the eager steps with their reasons,
-beside ``mano_kernel.LAUNCHES`` and ``raster_cuda.LAUNCHES``, which a
-replay advances by the kernel launches it holds.
+counts the captures, the replays, the eager steps with their reasons and
+the stagings that waited for their pinned buffer, beside
+``mano_kernel.LAUNCHES`` and ``raster_cuda.LAUNCHES``, which a replay
+advances by the kernel launches it holds.
 """
 
 from __future__ import annotations
@@ -46,8 +48,9 @@ from acr_tpu_torch.viz import raster_cuda
 log = logging.getLogger("acr_tpu_torch")
 
 # "<stage>.capture", "<stage>.replay" and "<stage>.eager.<reason>", reason
-# one of warmup, cpu, mesh, batch, render_size, capture_failed, since the
-# last reset_counts()
+# one of warmup, cpu, mesh, batch, render_size, capture_failed, and
+# "<stage>.input_wait" (a staging that waited for its pinned buffer), since
+# the last reset_counts()
 COUNTS: Dict[str, int] = collections.Counter()
 
 # the launch counters a replay advances
@@ -69,9 +72,12 @@ def count_eager(stage: str, reason: str) -> None:
 
 
 class _Key:
-    """One key's static inputs, pinned buffers and, once captured, graph."""
+    """One key's static inputs, pinned buffers and, once captured, graph;
+    ``name`` is its stage's, for ``COUNTS``."""
 
-    def __init__(self, inputs: Dict[str, torch.Tensor], device: torch.device):
+    def __init__(self, name: str, inputs: Dict[str, torch.Tensor],
+                 device: torch.device):
+        self.name = name
         self.device = device
         self.static = {n: torch.empty(v.shape, dtype=v.dtype, device=device)
                        for n, v in inputs.items()}
@@ -87,13 +93,17 @@ class _Key:
     def stage(self, inputs: Dict[str, torch.Tensor]) -> None:
         """Copy ``inputs`` into the static tensors, without a host wait.
 
-        A pinned buffer is rewritten only once the copy out of it has run.
-        The stream loop reads frame k-1 back, synchronising the device,
-        between issuing frame k and frame k+1, so the event has passed by
-        then and nothing waits; an event-based readback will need two
-        buffers used in turn."""
+        A pinned buffer is rewritten only once the copy out of it has run;
+        where that copy is still queued, the staging waits for it and
+        counts ``<stage>.input_wait``. One buffer is enough for a step
+        whose host inputs are staged at its front (``Inputs``): frame k's
+        copy is then the next thing on the stream after frame k-1's step,
+        the stream loop waits for that step's event when it reads frame
+        k-1 back, and stages frame k+1 at least one read and one
+        preprocess later."""
         host = any(not v.is_cuda for v in inputs.values())
         if host and self.copied is not None and not self.copied.query():
+            COUNTS[f"{self.name}.input_wait"] += 1
             self.copied.synchronize()
         for name, value in inputs.items():
             if value.is_cuda:
@@ -173,7 +183,7 @@ class StepGraph:
                            for n, v in inputs.items()))
         k = self._keys.get(full)
         if k is None:
-            k = self._keys[full] = _Key(inputs, self.device)
+            k = self._keys[full] = _Key(self.name, inputs, self.device)
         with torch.cuda.device(self.device):
             k.stage(inputs)
             if k.graph is None and not k.failed:
@@ -195,3 +205,28 @@ class StepGraph:
                 return fn(k.static)
             COUNTS[f"{self.name}.replay"] += 1
             return k.replay()
+
+
+class Inputs:
+    """A step's host inputs on the device, staged at the front of the step.
+
+    Each stage of the step takes its inputs from the returned static
+    tensors, device to device, so no stage stages a host copy behind the
+    device work of the stages before it. The tensors are rewritten by the
+    next call, after every read of them on the stream. Inputs already on
+    the device come back as they are."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._keys: Dict[Hashable, _Key] = {}
+
+    def __call__(self, inputs: Dict[str, torch.Tensor]) -> Outputs:
+        if all(v.is_cuda for v in inputs.values()):
+            return dict(inputs)
+        full = tuple((n, tuple(v.shape), v.dtype) for n, v in inputs.items())
+        k = self._keys.get(full)
+        if k is None:
+            k = self._keys[full] = _Key("inputs", inputs, self.device)
+        with torch.cuda.device(self.device):
+            k.stage(inputs)
+        return dict(k.static)

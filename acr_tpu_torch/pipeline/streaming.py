@@ -17,8 +17,10 @@ offsets staged through pinned memory: issuing a frame is a handful of
 launches and waits for nothing. At 1024 px and above the render runs
 eagerly, since the banded render's gate reads two maxima to the host
 (``viz.raster.banded_fits``), which waits for frame k's forward before
-the render is issued. The readback's ``torch.cuda.synchronize()`` waits
-for the whole device, frame k's work included.
+the render is issued. On a card each step ends with its outputs' copies
+to pinned host memory and an event after them, so frame k-1's readback
+waits for frame k-1's own work and its copies, never for frame k's,
+which runs under frame k-1's composite.
 
 Each stage of a turn is a stage of ``app.timer`` (a ``SpanTimer``) with
 the frame's index as its id: ``stream.read``, ``stream.preprocess`` and

@@ -13,7 +13,8 @@ frames made from a seed:
   exactly without a host read;
 - the webcam stream path (``StreamingLoop`` over 720p frames:
   the same forward, OneEuro smoothing (``-t``), MANO refine, render)
-  at ``render_size`` 2048, through the banded kernel, and again at 512;
+  at ``render_size`` 2048, through the banded kernel, and again at 512,
+  every frame read back on its own event (``app.READBACK``);
 - the throughput path (``ACRApp.run_folder`` over 720p JPEG frames at
   ``val_batch_size`` 8 with ``-t``: the chunk step's forward, OneEuro
   over the chunk, MANO refine, a render per frame), through the fused
@@ -772,7 +773,7 @@ def phase_stream(weights, out_dir):
     import numpy as np
     import torch
     from acr_tpu_torch.pipeline import graphs
-    from acr_tpu_torch.pipeline.app import ACRApp
+    from acr_tpu_torch.pipeline.app import READBACK, ACRApp
     from acr_tpu_torch.pipeline.streaming import StreamingLoop, SyntheticSource
     from acr_tpu_torch.viz import raster as R
     from acr_tpu_torch.viz import raster_cuda as rc
@@ -786,11 +787,13 @@ def phase_stream(weights, out_dir):
             (img, out)))
         rc.reset_launch_counts()
         graphs.reset_counts()
+        READBACK.clear()
         t0 = time.perf_counter()
         n = loop.run(SyntheticSource(N_STREAM, *FRAME_HW, seed=0))
         wall = time.perf_counter() - t0
         launches[size] = dict(rc.LAUNCHES)
         steps = dict(graphs.COUNTS)
+        readbacks = dict(READBACK)
         scale = 4 if size > 1000 else 1
         for k, (img, out) in enumerate(results):
             probe = R.render_overflow_probe(
@@ -819,7 +822,12 @@ def phase_stream(weights, out_dir):
         say("stream", f"{n} frames of {FRAME_HW[0]}x{FRAME_HW[1]} through "
             f"StreamingLoop, -t, render {size} px, in {wall:.2f} s (first "
             f"frames include set-up); launches {launches[size]}; step graphs "
-            f"{steps}; loop p50 {loop.p50_latency_ms():.3f} ms")
+            f"{steps}; readbacks {readbacks}; loop p50 "
+            f"{loop.p50_latency_ms():.3f} ms")
+        # every frame read back on its own event, none through a sync
+        if readbacks.get("event") != n or "sync" in readbacks:
+            raise AssertionError(f"readbacks {readbacks}, expected {n} on "
+                                 "their own event")
         # the first frame warms each graph up, the second captures it
         render = ({"render.eager.render_size": n} if size >= 1024 else
                   {"render.eager.warmup": 1, "render.capture": 1,

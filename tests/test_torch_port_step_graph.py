@@ -19,10 +19,19 @@ weights with both hands forced detected, 512 px input:
 - a replayed step makes no host wait (``set_sync_debug_mode("error")``);
 - at render 1024 the render stays eager (reason ``render_size``) and the
   step still equals the eager one;
-- a capture that fails leaves that stage eager and the step correct.
+- a capture that fails leaves that stage eager and the step correct;
+- frame k-1's readback waits for its own event, not for frame k and
+  50 ms of device work queued behind it;
+- over eight frames each delivered dict equals eager bit for bit and stays
+  so after later frames, overlay and tracking;
+- the step's pinned copies and event are enqueued without a host wait;
+- over 200 frames that keep only ``verts``, the pinned memory held grows
+  by those arrays alone, every frame reads back on its event and no
+  input staging waits for its pinned buffer.
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -33,7 +42,7 @@ from acr_tpu_torch.models import mano as tm
 from acr_tpu_torch.ops import mano_kernel as mk
 from acr_tpu_torch.pipeline import graphs
 from acr_tpu_torch.pipeline import infer
-from acr_tpu_torch.pipeline.app import ACRApp
+from acr_tpu_torch.pipeline.app import READBACK, ACRApp, StreamOutputs
 from acr_tpu_torch.pipeline.preprocess import img_preprocess
 from acr_tpu_torch.pipeline.streaming import StreamingLoop, SyntheticSource
 from acr_tpu_torch.viz import raster_cuda as rc
@@ -299,3 +308,120 @@ def test_failed_capture_stays_eager(tmp_path, monkeypatch):
     assert "forward.replay" not in graphs.COUNTS
     assert graphs.COUNTS["smooth.replay"] == 3
     assert graphs.COUNTS["render.replay"] == 3
+
+
+# --- the readback on the step's own event ---
+
+@pytest.mark.cuda
+def test_readback_waits_for_its_own_event(tmp_path):
+    _need_card()
+    app = ACRApp(_cfg(tmp_path, "event"), params=_weights(), device="cuda")
+    metas = _steps(app, _frames(4))
+    for meta in metas[:2]:                          # warm-up, capture
+        app.unpack_stream(app.stream_step(meta))
+    prev = app.stream_step(metas[2])
+    time.sleep(0.2)                                 # frame k-1's step runs
+    cur = app.stream_step(metas[3])
+    torch.cuda._sleep(100_000_000)                  # about 50 ms at 2 GHz
+    slept = torch.cuda.Event()
+    slept.record()
+    READBACK.clear()
+    t0 = time.perf_counter()
+    out = app.unpack_stream(prev)
+    waited_ms = (time.perf_counter() - t0) * 1e3
+    busy = not slept.query()
+    app.unpack_stream(cur)
+    assert busy, "the device work queued behind frame k-1 had already run"
+    assert waited_ms < 5.0, waited_ms
+    assert READBACK["event"] == 2 and "sync" not in READBACK
+    assert out["verts"].shape == (1, 2, 778, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("visual", [True, False], ids=["overlay", "tracking"])
+def test_delivered_outputs_stay_eager(tmp_path, visual):
+    _need_card()
+    params = _weights()
+    frames = _frames()
+    want = _run(_eager(ACRApp(_cfg(tmp_path, "eager", visual=visual),
+                              params=params, device="cuda")), frames)
+    app = ACRApp(_cfg(tmp_path, "event", visual=visual), params=params,
+                 device="cuda")
+    got, at_delivery = [], []
+
+    def keep(img, out):
+        got.append(out)
+        at_delivery.append({k: v.copy() for k, v in out.items()})
+        assert_same_steps(at_delivery[-1:], want[len(got) - 1:len(got)])
+
+    READBACK.clear()
+    StreamingLoop(app, on_result=keep).run(Frames(frames))
+    torch.cuda.synchronize()
+    assert_same_steps(got, at_delivery)
+    assert_same_steps(got, want)
+    assert dict(READBACK).get("event") == STEPS and "sync" not in READBACK
+
+
+@pytest.mark.cuda
+def test_step_copies_wait_for_nothing(tmp_path):
+    _need_card()
+    app = ACRApp(_cfg(tmp_path, "copies"), params=_weights(), device="cuda")
+    metas = _steps(app, _frames(3))
+    for meta in metas[:2]:
+        app.unpack_stream(app.stream_step(meta))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = app.stream_step(metas[2])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert isinstance(out, StreamOutputs)
+    assert set(out.host) == set(out)
+    for k, v in out.host.items():
+        assert v.is_pinned() and v.shape == out[k].shape, k
+    got = app.unpack_stream(out)
+    assert np.array_equal(got["verts"], out["verts"].cpu().numpy())
+
+
+def _pinned_bytes():
+    stats = getattr(torch.cuda, "host_memory_stats", lambda: {})()
+    return stats.get("allocated_bytes.current")
+
+
+@pytest.mark.cuda
+def test_kept_outputs_hold_only_their_memory(tmp_path):
+    _need_card()
+    n = 200
+    app = ACRApp(_cfg(tmp_path, "keep"), params=_weights(), device="cuda")
+    StreamingLoop(app).run(Frames(_frames(3)))      # warm-up, capture
+    torch.cuda.synchronize()
+    before = _pinned_bytes()
+    graphs.reset_counts()
+    READBACK.clear()
+    kept, sizes = [], []
+
+    def keep(img, out):
+        kept.append(out["verts"][0])
+        sizes.append(sum(_block(v.nbytes) for v in out.values()))
+
+    StreamingLoop(app, on_result=keep).run(Frames(_frames(n)))
+    assert len(kept) == n
+    assert READBACK["event"] == n and "sync" not in READBACK
+    assert not [k for k in graphs.COUNTS if k.endswith("input_wait")]
+    verts = kept[0].nbytes
+    for v in kept:
+        base = v.base
+        while isinstance(base, np.ndarray):
+            base = base.base
+        assert isinstance(base, torch.Tensor) and base.is_pinned()
+        assert base.numel() * base.element_size() == verts
+    after = _pinned_bytes()
+    if before is not None and after is not None:
+        # each kept array's own block, and a few frames' outputs in
+        # flight or cached: not a frame's 4 MB RGBA per kept array
+        assert after - before <= n * _block(verts) + 4 * max(sizes), (
+            after - before)
+
+
+def _block(nbytes):
+    """The caching host allocator's block: the next power of two."""
+    return 1 << (nbytes - 1).bit_length()

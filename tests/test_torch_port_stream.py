@@ -8,7 +8,11 @@ format results agree to float16 resolution and the RGBA renders as in
 ``tests/test_torch_port_app.py``: the same coverage, shading to 1e-3.
 The OneEuro states agree to 1e-5. The port's loop also yields its
 ``SpanTimer`` spans, once per frame, into the records and a profiler's
-trace while the timer records, and nothing while it does not.
+trace while the timer records, and nothing while it does not. On the
+CPU the loop reads each frame back through ``readback``: over eight
+frames, with and without ``-t`` and render, it delivers what a plain
+``stream_step`` and ``readback`` give, bit for bit, and ``READBACK``
+counts a ``sync`` a frame and no ``event``.
 """
 
 import os
@@ -28,7 +32,9 @@ from acr_tpu.pipeline.streaming import StreamingLoop as JaxStreamingLoop
 from acr_tpu.pipeline.streaming import SyntheticSource as JaxSyntheticSource
 from acr_tpu_torch.config import Config
 from acr_tpu_torch.io.params import from_flax
-from acr_tpu_torch.pipeline.app import ACRApp
+from acr_tpu_torch.pipeline import app as app_mod
+from acr_tpu_torch.pipeline.app import ACRApp, readback
+from acr_tpu_torch.pipeline.preprocess import img_preprocess
 from acr_tpu_torch.pipeline.results import reorganize_results
 from acr_tpu_torch.pipeline.streaming import StreamingLoop, SyntheticSource
 from test_torch_port_app import MANO_DIR, flat  # noqa: F401 (fixture)
@@ -175,6 +181,34 @@ def test_streaming_loop_off_records_nothing(flat, tmp_path, monkeypatch):
     assert len(loop.latencies) == 2
     counts = {k: v["count"] for k, v in app.timer.report().items()}
     assert counts == {**{name: 2 for name in FRAME_SPANS}, "stream.read": 3}
+
+
+@pytest.mark.parametrize("visual", [True, False], ids=["render", "no_render"])
+@pytest.mark.parametrize("temporal", [True, False], ids=["t", "no_t"])
+def test_streaming_loop_delivers_plain_readback(flat, tmp_path, temporal,
+                                                visual):
+    def make(name):
+        return ACRApp(Config(**_kw(tmp_path, name,
+                                   temporal_optimization=temporal,
+                                   save_visualization_on_img=visual,
+                                   raster_overflow_every=1)),
+                      params=from_flax(flat), device="cpu")
+    source = SyntheticSource(8)
+    app_mod.READBACK.clear()
+    got = []
+    assert StreamingLoop(make("loop"), on_result=lambda img, out: got.append(
+        out)).run(source) == 8
+    assert dict(app_mod.READBACK) == {"sync": 8}
+    plain = make("plain")
+    for k, (frame, out) in enumerate(zip(source.frames, got)):
+        want = readback(plain.stream_step(
+            img_preprocess(frame, str(k), input_size=128)))
+        want.pop("_raster_overflow", None)
+        assert out.keys() == want.keys()
+        assert ("_rgba" in out) == visual
+        for key in want:
+            assert out[key].dtype == want[key].dtype, key
+            np.testing.assert_array_equal(out[key], want[key], err_msg=key)
 
 
 @pytest.fixture(scope="module")
