@@ -4,9 +4,9 @@ A copy of ``acr_tpu/config.py`` for the PyTorch port, with ``yaml``
 imported only when a YAML file is read. The port imports nothing of the
 JAX package, so it carries its own copy; ``tests/test_torch_port_host.py``
 holds the field names and defaults equal to the original's, but for the
-port's own fields (``PORT_ONLY``). The port
-runs a slice of these options: ``acr_tpu_torch.pipeline.infer.check_slice``
-raises ``NotImplementedError`` for every value it does not run.
+port's own fields (``PORT_ONLY``). The port runs every value that
+``Config`` accepts; the TPU layout rewrites (``s2d_*``, ``merged_heads``)
+are accepted and change nothing, since it builds the canonical network.
 
 Mirrors the surface of the reference config system (reference:
 acr/config.py:19-222) — ~same flag names, same CLI > YAML > default

@@ -25,9 +25,10 @@ The graph reads every other tensor the stage touches (weights, MANO
 assets, faces, the OneEuro state) where it lay at capture, in place.
 
 Where a stage may engage is decided by its owner from what it can
-observe: a CUDA device, no mesh, batch 1 and, for the render, a size
-below 1024 px (``ACRPipeline.__call__``, ``ACRApp._issue``,
-``pipeline.hamer.Regressor.issue``). ``COUNTS``
+observe: a CUDA device, no mesh, batch 1 (``ACRPipeline.graph_block``)
+and, for the render, a size below 1024 px (``ACRApp._step``). The owner
+passes the reason it found, or None, and ``StepGraph`` either replays or
+counts the reason and runs the stage eagerly. ``COUNTS``
 counts the captures, the replays, the eager steps with their reasons and
 the stagings that waited for their pinned buffer, beside
 ``mano_kernel.LAUNCHES`` and ``raster_cuda.LAUNCHES``, which a replay
@@ -174,11 +175,20 @@ class StepGraph:
         self.device = device
         self._keys: Dict[Hashable, _Key] = {}
 
-    def __call__(self, key: Hashable, fn: Callable[[Outputs], Outputs],
-                 inputs: Dict[str, torch.Tensor]) -> Outputs:
+    def __call__(self, why: Optional[str], key: Hashable,
+                 fn: Callable[[Outputs], Outputs],
+                 inputs: Dict[str, torch.Tensor],
+                 eager: Optional[Callable[[Outputs], Outputs]] = None
+                 ) -> Outputs:
         """``fn(inputs on the device)``, a dict of tensors from a dict of
-        tensors, eagerly, by capture or by replay. ``key`` names what else
-        changes ``fn``'s launches; the inputs' shapes and dtypes join it."""
+        tensors. Where ``why`` is None, eagerly, by capture or by replay:
+        ``key`` names what else changes ``fn``'s launches; the inputs'
+        shapes and dtypes join it. Else the reason is counted and ``eager``
+        (by default ``fn``) runs on the inputs moved to the device."""
+        if why is not None:
+            count_eager(self.name, why)
+            return (eager or fn)({n: v.to(self.device)
+                                  for n, v in inputs.items()})
         full = (key, tuple((n, tuple(v.shape), v.dtype)
                            for n, v in inputs.items()))
         k = self._keys.get(full)
@@ -210,19 +220,25 @@ class StepGraph:
 class Inputs:
     """A step's host inputs on the device, staged at the front of the step.
 
-    Each stage of the step takes its inputs from the returned static
-    tensors, device to device, so no stage stages a host copy behind the
-    device work of the stages before it. The tensors are rewritten by the
-    next call, after every read of them on the stream. Inputs already on
-    the device come back as they are."""
+    Where the step's stages replay their graphs (``why`` None), each takes
+    its inputs from the returned static tensors, device to device, so no
+    stage stages a host copy behind the device work of the stages before
+    it. The tensors are rewritten by the next call, after every read of
+    them on the stream. Elsewhere (``why`` a reason) the inputs come back
+    moved to the device, but under a mesh as they are, for the forward to
+    split over the replicas; inputs already on the device come back as
+    they are."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self._keys: Dict[Hashable, _Key] = {}
 
-    def __call__(self, inputs: Dict[str, torch.Tensor]) -> Outputs:
-        if all(v.is_cuda for v in inputs.values()):
+    def __call__(self, why: Optional[str], inputs: Dict[str, torch.Tensor]
+                 ) -> Outputs:
+        if why == "mesh" or all(v.is_cuda for v in inputs.values()):
             return dict(inputs)
+        if why is not None:
+            return {n: v.to(self.device) for n, v in inputs.items()}
         full = tuple((n, tuple(v.shape), v.dtype) for n, v in inputs.items())
         k = self._keys.get(full)
         if k is None:

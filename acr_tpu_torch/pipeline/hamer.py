@@ -24,24 +24,27 @@ exact positions (cv2 rounds positions to 1/32 px).
 The network (``models.hamer.HaMeR``) regresses right-hand MANO in the
 crop; the rotations are turned into axis-angle, the parser's output
 form, so that OneEuro (``pipeline.temporal``) filters them as it does
-ACR's. The tail (``tail``): both hands through the right MANO without
-the mean pose and without root alignment, the left mesh mirrored in x
-and its camera's x offset negated (the demo's multiplier), the crop's
-weak-perspective camera carried to the frame's (``cam_crop_to_full``)
-at HaMeR's focal length scaled to the input (5000 / 256 x 512 = 10000
-px), and the joints projected through it, then into the original frame
+ACR's. The crop's weak-perspective camera is carried to the frame's
+translation (``cam_crop_to_full``) at HaMeR's focal length scaled to
+the input (5000 / 256 x 512 = 10000 px), with the left camera's x offset
+negated (the demo's multiplier). The tail (``Regressor.tail``): both
+hands through the right MANO without the mean pose and without root
+alignment, the left mesh mirrored in x, and the joints projected through
+the translation, then into the original frame
 (``project.kp2d_to_org_image``).
 
-``Regressor`` holds the network on the device and the stage's CUDA
-graph (``StepGraph("regress")``); ``CROPS`` counts the crops issued, on
-the host, with no sync.
+``Regressor`` holds the network on the device and the tail, which the
+app installs as its pipeline's mesh tail (``ACRPipeline.tail``), so that
+every mesh of a step, the regressed poses' and with ``-t`` OneEuro's,
+comes out of ``ACRPipeline.refine``; ``CROPS`` counts the crops issued,
+on the host, with no sync.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
-from typing import Callable, Dict, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -49,7 +52,7 @@ import torch.nn.functional as F
 
 from acr_tpu_torch.models import hamer as hamer_model
 from acr_tpu_torch.ops.rotations import rotmat_to_axis_angle
-from acr_tpu_torch.pipeline import graphs
+from acr_tpu_torch.pipeline.infer import apply_mano
 from acr_tpu_torch.pipeline.project import kp2d_to_org_image
 
 log = logging.getLogger("acr_tpu_torch")
@@ -165,51 +168,26 @@ def _mirror_left(t: torch.Tensor, axis: int = 0) -> torch.Tensor:
     return torch.cat([left, t[:, 1:]], 1)
 
 
-def tail(mano_fn: Callable, poses: torch.Tensor, betas: torch.Tensor,
-         cam: torch.Tensor, boxes: torch.Tensor, offsets: torch.Tensor,
-         input_size: int) -> Dict[str, torch.Tensor]:
-    """MANO and the camera: poses (B, 2, 48) axis-angle, betas (B, 2, 10),
-    cam (B, 2, 3) with the left x offset negated, boxes (B, 2, 3), offsets
-    (B, 10). ``mano_fn(poses, betas)`` is the right MANO without the mean
-    pose or root alignment -> (verts, joints)."""
-    b = poses.shape[0]
-    verts, j3d = mano_fn(poses.reshape(2 * b, -1), betas.reshape(2 * b, -1))
-    verts = _mirror_left(verts.reshape(b, 2, -1, 3))
-    j3d = _mirror_left(j3d.reshape(b, 2, -1, 3))
-    focal = FOCAL / hamer_model.DIMS.crop * input_size
-    trans = cam_crop_to_full(cam, boxes, input_size, focal)
-    half = input_size / 2.0
-
-    def project(p):
-        q = p + trans[:, :, None]
-        return focal * q[..., :2] / q[..., 2:3] / half
-
-    pj2d = project(j3d)
-    return {"verts": verts, "j3d": j3d,
-            "verts_camed": torch.cat([project(verts), verts[..., 2:]], -1),
-            "pj2d": pj2d, "pj2d_org": kp2d_to_org_image(pj2d, offsets[:, None, :]),
-            "cam_trans": trans}
-
-
 def mirrored_faces(right: np.ndarray) -> np.ndarray:
     """(2, F, 3) faces of two right MANO meshes whose first is mirrored:
     its faces re-wound, so that they face out as the right's do."""
     return np.stack([np.ascontiguousarray(right[:, ::-1]), right])
 
 
-def _no_stage(name: str):
-    return contextlib.nullcontext()
-
-
 class Regressor:
     """HaMeR's network on ``device`` (fp32, TF32 off as the pipeline sets
     it) holding ``params`` (HaMeR's checkpoint names), or seeded stand-in
-    weights with a warning where none are given."""
+    weights with a warning where none are given, and its tail through
+    ``mano``, the right MANO asset of the detector's pipeline."""
+
+    # the regress stage's output that the tail takes as its camera
+    CAMERA = "cam_trans"
 
     def __init__(self, cfg, params: Optional[Dict[str, torch.Tensor]],
-                 device: torch.device):
-        self.cfg, self.device = cfg, device
+                 mano, device: torch.device):
+        self.cfg, self.mano = cfg, mano
         self.dims = hamer_model.DIMS
+        self.focal = FOCAL / self.dims.crop * cfg.input_size
         if not params:
             log.warning("HaMeR: no trained weights given (hamer.* keys); "
                         "serving seeded stand-in weights")
@@ -223,17 +201,15 @@ class Regressor:
                                   for k, v in params.items()},
                                  strict=True, assign=True)
         self.net.eval().requires_grad_(False)
-        self.graph = graphs.StepGraph("regress", device)
 
     @torch.no_grad()
-    def regress(self, refine: Callable, image: torch.Tensor,
-                pj2d: torch.Tensor, detected: torch.Tensor,
-                offsets: torch.Tensor, stage=_no_stage) -> Dict[str, torch.Tensor]:
-        """The crops, the network and ``refine`` (the pipeline's MANO and
-        camera tail, given the boxes): ``hamer_params`` (B, 2, 109, the
-        regressed 6D pose, betas and crop camera), ``boxes``, ``poses``
-        (B, 2, 48 axis-angle), ``betas``, ``cam`` (the left x offset
-        negated) and the tail's outputs."""
+    def regress(self, image: torch.Tensor, pj2d: torch.Tensor,
+                detected: torch.Tensor, stage=contextlib.nullcontext
+                ) -> Dict[str, torch.Tensor]:
+        """The crops, the network and the camera: ``hamer_params`` (B, 2,
+        109, the regressed 6D pose, betas and crop camera), ``boxes``,
+        ``poses`` (B, 2, 48 axis-angle), ``betas``, ``cam`` (the left x
+        offset negated) and ``cam_trans``, the frame's translation."""
         b = image.shape[0]
         with stage("regress.crop"):
             boxes = boxes_from_joints(pj2d, self.cfg.input_size, self.dims)
@@ -242,30 +218,36 @@ class Regressor:
             p = self.net(x).reshape(b, 2, hamer_model.N_PARAMS)
             rot = hamer_model.rot6d_to_rotmat(
                 p[..., :hamer_model.N_POSE].reshape(b, 2, 16, 6))
-            res = {"hamer_params": p, "boxes": boxes,
-                   "poses": rotmat_to_axis_angle(rot).reshape(b, 2, 48),
-                   "betas": p[..., hamer_model.N_POSE:-hamer_model.N_CAM],
-                   "cam": _mirror_left(p[..., -hamer_model.N_CAM:], axis=1)}
-            res.update(refine(res["poses"], res["betas"], res["cam"], offsets,
-                              boxes=boxes))
-        return res
+            cam = _mirror_left(p[..., -hamer_model.N_CAM:], axis=1)
+            return {"hamer_params": p, "boxes": boxes,
+                    "poses": rotmat_to_axis_angle(rot).reshape(b, 2, 48),
+                    "betas": p[..., hamer_model.N_POSE:-hamer_model.N_CAM],
+                    "cam": cam,
+                    "cam_trans": cam_crop_to_full(cam, boxes, self.cfg.input_size,
+                                                  self.focal)}
 
-    def issue(self, refine: Callable, image, out: Dict[str, torch.Tensor],
-              offsets: torch.Tensor, why: Optional[str],
-              stage=_no_stage) -> Dict[str, torch.Tensor]:
-        """The regress stage of a step for the detections in ``out``:
-        through the stage's CUDA graph where ``why`` is None, else eagerly,
-        counted by its reason, with the nested stages ``regress.crop`` and
-        ``regress.net``."""
-        image = torch.as_tensor(image)
-        CROPS["crops"] += 2 * image.shape[0]
-        inputs = {"image": image, "pj2d": out["pj2d"],
-                  "detection_flag": out["detection_flag"], "offsets": offsets}
-        if why is None:
-            return self.graph(None, lambda d: self.regress(
-                refine, d["image"], d["pj2d"], d["detection_flag"],
-                d["offsets"]), inputs)
-        graphs.count_eager("regress", why)
-        d = {k: v.to(self.device) for k, v in inputs.items()}
-        return self.regress(refine, d["image"], d["pj2d"], d["detection_flag"],
-                            d["offsets"], stage)
+    def tail(self, poses: torch.Tensor, betas: torch.Tensor,
+             trans: torch.Tensor, offsets: torch.Tensor
+             ) -> Dict[str, torch.Tensor]:
+        """MANO and the camera: ``poses`` (B, 2, 48) axis-angle, ``betas``
+        (B, 2, 10), ``trans`` (B, 2, 3) the frame's translation and
+        ``offsets`` (B, 10). Both hands go through the right MANO without
+        the mean pose or root alignment."""
+        b = poses.shape[0]
+        verts, j3d, _ = apply_mano(self.mano, poses.reshape(2 * b, -1),
+                                   betas.reshape(2 * b, -1), None,
+                                   add_mean=False)
+        verts = _mirror_left(verts.reshape(b, 2, -1, 3))
+        j3d = _mirror_left(j3d.reshape(b, 2, -1, 3))
+        half = self.cfg.input_size / 2.0
+
+        def project(p):
+            q = p + trans[:, :, None]
+            return self.focal * q[..., :2] / q[..., 2:3] / half
+
+        pj2d = project(j3d)
+        return {"verts": verts, "j3d": j3d,
+                "verts_camed": torch.cat([project(verts), verts[..., 2:]], -1),
+                "pj2d": pj2d,
+                "pj2d_org": kp2d_to_org_image(pj2d, offsets[:, None, :]),
+                "cam_trans": trans}

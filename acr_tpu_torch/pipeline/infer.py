@@ -59,7 +59,7 @@ from acr_tpu_torch.parallel.mesh import (
     split_batch,
 )
 from acr_tpu_torch.parser.parse import parse_outputs
-from acr_tpu_torch.pipeline import graphs, hamer
+from acr_tpu_torch.pipeline import graphs
 from acr_tpu_torch.pipeline.project import (
     estimate_translation_ls,
     kp2d_to_org_image,
@@ -68,13 +68,6 @@ from acr_tpu_torch.pipeline.project import (
 from acr_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger("acr_tpu_torch")
-
-
-def check_slice(cfg: Config) -> None:
-    """Every option value of ``Config`` runs in the port, so nothing
-    raises here. The TPU layout rewrites (``s2d_*``, ``merged_heads``)
-    are not options of the port: it builds the canonical network
-    whatever they say."""
 
 
 def set_fp32_math() -> None:
@@ -111,7 +104,7 @@ class ManoAuto(NamedTuple):
 PALLAS_MANO_MIN_BATCH = 8
 
 
-def _apply_mano(mano, poses, betas, center_idx, add_mean=True):
+def apply_mano(mano, poses, betas, center_idx, add_mean=True):
     """Dispatch on the asset type: the fused kernel path or the pure
     path. ``ManoAuto`` takes the fused path from
     ``PALLAS_MANO_MIN_BATCH`` hands per call."""
@@ -135,8 +128,8 @@ def _mano_projection_tail(mano_l, mano_r, poses, betas, cam, offsets,
     poses (B,2,48), betas (B,2,10), cam (B,2,3), offsets (B,10).
     """
     align = cfg.align_idx if cfg.mano_mesh_root_align else None
-    verts_l, j3d_l, _ = _apply_mano(mano_l, poses[:, 0], betas[:, 0], align)
-    verts_r, j3d_r, _ = _apply_mano(mano_r, poses[:, 1], betas[:, 1], align)
+    verts_l, j3d_l, _ = apply_mano(mano_l, poses[:, 0], betas[:, 0], align)
+    verts_r, j3d_r, _ = apply_mano(mano_r, poses[:, 1], betas[:, 1], align)
     verts = torch.stack([verts_l, verts_r], dim=1)      # (B, 2, 778, 3)
     j3d = torch.stack([j3d_l, j3d_r], dim=1)            # (B, 2, 21, 3)
     verts_camed = weak_persp_project(verts, cam, keep_dim=True)
@@ -242,7 +235,6 @@ class ACRPipeline:
     def __init__(self, cfg: Config, params: Optional[Dict[str, torch.Tensor]] = None,
                  device="cuda", merge_params=None,
                  devices: Optional[Sequence] = None):
-        check_slice(cfg)
         self.mesh = None
         if cfg.data_parallel > 1:
             # join the processes first (the config's coordinator, else the
@@ -277,6 +269,10 @@ class ACRPipeline:
         self.mano_r, faces_r = load_mano_model(cfg.mano_model_path, "right",
                                                device=self.device)
         self.faces = np.stack([faces_l, faces_r])      # (2, 1538, 3)
+        # the mesh tail that ``refine`` runs: ACR's (None), or another
+        # architecture's that an app sets, tail(poses, betas, cam, offsets)
+        # -> the outputs of ``mano_refine_fn``, ``cam`` its own camera
+        self.tail: Optional[Callable[..., Dict[str, torch.Tensor]]] = None
         # 'on' always takes the fused kernel, 'auto' from
         # PALLAS_MANO_MIN_BATCH hands per call (on the CPU the fused path
         # runs the kernel's plain version)
@@ -354,7 +350,7 @@ class ACRPipeline:
             self._replicate()
 
     @torch.no_grad()
-    def __call__(self, image, offsets, return_maps: bool = False
+    def __call__(self, image, offsets, return_maps: bool = False, why=...
                  ) -> Dict[str, torch.Tensor]:
         """image uint8 (B, S, S, 3), offsets float32 (B, 10); numpy or
         tensors. Returns device tensors (on the lead replica under a mesh).
@@ -362,30 +358,33 @@ class ACRPipeline:
         graph (``pipeline.graphs``), its inputs staged through pinned
         memory, with no host wait; elsewhere it runs eagerly, and a host
         input's copy to a card waits for the stream, as does the gather
-        across processes."""
+        across processes. ``why`` is the step's ``graph_block``, asked
+        here where the caller does not pass it."""
         image = torch.as_tensor(image)
         offsets = torch.as_tensor(offsets, dtype=torch.float32)
-        why = self.graph_block(image.shape[0])
-        if why is None:
-            return self._graph(
-                return_maps,
-                lambda d: self._forward(d["image"], d["offsets"], return_maps),
-                {"image": image, "offsets": offsets})
-        graphs.count_eager("forward", why)
-        if self.mesh is not None:
-            return self.run_sharded(
-                lambda rep, img, off: forward_fn(
-                    rep.net, rep.mano_l, rep.mano_r, img, off, self.cfg,
-                    return_maps=return_maps, merge_params=rep.merge_params),
-                image, offsets)
-        return self._forward(image.to(self.device), offsets.to(self.device),
-                             return_maps)
+        if why is ...:
+            why = self.graph_block(image.shape[0])
 
-    def _forward(self, image: torch.Tensor, offsets: torch.Tensor,
-                 return_maps: bool) -> Dict[str, torch.Tensor]:
-        return forward_fn(self.net, self.mano_l, self.mano_r, image, offsets,
+        def lead(d):
+            return self.forward_on(self.replicas[0], d["image"], d["offsets"],
+                                   return_maps)
+
+        def sharded(d):
+            return self.run_sharded(
+                lambda rep, img, off: self.forward_on(rep, img, off,
+                                                      return_maps),
+                d["image"], d["offsets"])
+        return self._graph(why, return_maps, lead,
+                           {"image": image, "offsets": offsets},
+                           eager=None if self.mesh is None else sharded)
+
+    def forward_on(self, rep: Replica, image: torch.Tensor,
+                   offsets: torch.Tensor, return_maps: bool = False
+                   ) -> Dict[str, torch.Tensor]:
+        """``forward_fn`` on one replica's copy of the network and assets."""
+        return forward_fn(rep.net, rep.mano_l, rep.mano_r, image, offsets,
                           self.cfg, return_maps=return_maps,
-                          merge_params=self.merge_params)
+                          merge_params=rep.merge_params)
 
     def graph_block(self, batch: int) -> Optional[str]:
         """Why a step of ``batch`` frames runs eagerly (``cpu``, ``mesh`` or
@@ -426,22 +425,14 @@ class ACRPipeline:
         return out
 
     @torch.no_grad()
-    def refine(self, poses, betas, cam, offsets, boxes=None
-               ) -> Dict[str, torch.Tensor]:
-        """``mano_refine_fn`` on the pipeline's device; a host input's
-        copy to a card waits for the stream. Given ``boxes`` (B, 2, 3), the
-        crops of HaMeR's regressor, it is HaMeR's tail instead
-        (``pipeline.hamer.tail``): both hands through the right MANO
-        without the mean pose or root alignment, and the crops' cameras
-        carried to the frame."""
+    def refine(self, poses, betas, cam, offsets) -> Dict[str, torch.Tensor]:
+        """The mesh tail on the pipeline's device: ``mano_refine_fn``, or
+        ``tail`` where an app set one; a host input's copy to a card waits
+        for the stream."""
         dev = self.device
         poses, betas, cam = (torch.as_tensor(t).to(dev) for t in (poses, betas, cam))
         offsets = torch.as_tensor(offsets, dtype=torch.float32).to(dev)
-        if boxes is not None:
-            return hamer.tail(
-                lambda p, b: _apply_mano(self.mano_r, p, b, None,
-                                         add_mean=False)[:2],
-                poses, betas, cam, torch.as_tensor(boxes).to(dev), offsets,
-                self.cfg.input_size)
+        if self.tail is not None:
+            return self.tail(poses, betas, cam, offsets)
         return mano_refine_fn(self.mano_l, self.mano_r, poses, betas, cam,
                               offsets, self.cfg)

@@ -1137,7 +1137,7 @@ def phase_kernels_mano():
     for batch in (thr - 1, thr):
         poses, betas = _mano_inputs(batch, batch, dev)
         mk.reset_launch_counts()
-        infer._apply_mano(auto, poses, betas, 9)
+        infer.apply_mano(auto, poses, betas, 9)
         took[batch] = mk.LAUNCHES["mano_fused"]
     say("kernels", f"ManoAuto at PALLAS_MANO_MIN_BATCH = {thr}: mano_fused "
         f"launches {took[thr]} at B {thr}, {took[thr - 1]} at B {thr - 1}")

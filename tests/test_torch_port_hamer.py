@@ -94,7 +94,8 @@ def make_app(**kw):
                architecture="hamer", demo_mode="webcam",
                focal_length=ref.FOCAL / D.crop * SIZE)
     cfg.update(kw)
-    return ACRApp(Config(**cfg), params=app_params(), device="cpu")
+    return ACRApp(Config(**cfg), device="cpu", params=app_params()
+                  if cfg["architecture"] == "hamer" else acr_weights())
 
 
 def frames(n, seed=5):
@@ -189,7 +190,10 @@ def test_cam_crop_to_full_and_tail_match_reference(small):
     poses = torch.randn(1, 2, 48, generator=g) * 0.3
     betas = torch.randn(1, 2, 10, generator=g) * 0.5
     offsets = torch.tensor([[128.0, 128, 0, 0, 0, 0, 16, 0, 16, 0]])
-    got = app.pipeline.refine(poses, betas, cam, offsets, boxes=boxes)
+    assert app.pipeline.tail == app.regressor.tail
+    got = app.pipeline.refine(poses, betas,
+                              ph.cam_crop_to_full(cam, boxes, SIZE, focal),
+                              offsets)
     m = ref.load_mano(MANO_DIR, "cpu")
     from acr_tpu_torch.ops.rotations import axis_angle_to_rotmat
     rot = axis_angle_to_rotmat(poses.reshape(2, 16, 3)).double()
@@ -277,9 +281,8 @@ def test_stream_step_matches_reference(small, temporal):
 
 def _regressed(app, meta, det):
     """The app's regressed poses (axis-angle) of one frame, before OneEuro."""
-    res = app.regressor.regress(app.pipeline.refine, torch.as_tensor(meta["image"]),
-                                det["pj2d"], det["detection_flag"],
-                                torch.as_tensor(meta["offsets"]))
+    res = app.regressor.regress(torch.as_tensor(meta["image"]),
+                                det["pj2d"], det["detection_flag"])
     return res["poses"][0]
 
 
@@ -303,6 +306,92 @@ def test_regress_stage_spans_and_chunk_step(small):
         for key in ("hamer_params", "verts", "cam_trans", "pj2d_org"):
             np.testing.assert_allclose(chunk[key][k].numpy(), singles[k][key][0],
                                        rtol=1e-5, atol=1e-5, err_msg=key)
+
+
+@pytest.mark.parametrize("architecture", ["acr", "hamer"])
+def test_chunk_step_equals_single_steps_with_smoothing(small, architecture):
+    """With ``-t`` a folder chunk of two frames equals the two frames
+    through two single-frame steps, OneEuro's state carried from the first
+    to the second; each side from a fresh app. A batch of two need not
+    give a batch of one's bits."""
+    def fresh():
+        return make_app(architecture=architecture, temporal_optimization=True,
+                        save_visualization_on_img=False)
+    metas = [img_preprocess(f, str(k), input_size=SIZE)
+             for k, f in enumerate(frames(2, seed=13))]
+    app = fresh()
+    singles = [app.unpack_stream(app.stream_step(m)) for m in metas]
+    app = fresh()
+    graphs.reset_counts()
+    chunk = app.chunk_step(np.concatenate([m["image"] for m in metas]),
+                           np.concatenate([m["offsets"] for m in metas]))
+    assert graphs.COUNTS["smooth.eager.cpu"] == 1
+    assert all(o["detection_flag"].all() for o in singles)
+    keys = ["poses", "betas", "verts", "j3d", "cam_trans", "pj2d_org"]
+    if architecture == "hamer":
+        keys.append("hamer_params")
+    for k in range(2):
+        for key in keys:
+            np.testing.assert_allclose(chunk[key][k].numpy(), singles[k][key][0],
+                                       rtol=1e-5, atol=1e-5, err_msg=key)
+
+
+class _Shifted:
+    """The app's pipeline with the mesh of its forward and of its refine
+    moved by ``SHIFT`` (the benchmark's ``altered`` fault)."""
+    SHIFT = 1e-4
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __call__(self, *a, **k):
+        out = self.inner(*a, **k)
+        out["verts"] = out["verts"] + self.SHIFT
+        return out
+
+    def refine(self, *a, **k):
+        out = self.inner.refine(*a, **k)
+        out["verts"] = out["verts"] + self.SHIFT
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+@pytest.mark.parametrize("temporal", [False, True])
+def test_every_mesh_comes_out_of_the_pipeline(small, temporal):
+    """HaMeR's meshes, the regress stage's and OneEuro's, come out of the
+    pipeline's ``refine``, looked up at call time, so a wrapper of the
+    app's pipeline moves every mesh the step returns."""
+    metas = [img_preprocess(f, str(k), input_size=SIZE)
+             for k, f in enumerate(frames(2, seed=17))]
+    outs = []
+    for wrap in (False, True):
+        app = make_app(temporal_optimization=temporal,
+                       save_visualization_on_img=False)
+        if wrap:
+            app.pipeline = _Shifted(app.pipeline)
+        outs.append([app.unpack_stream(app.stream_step(m)) for m in metas])
+    for plain, moved in zip(*outs):
+        np.testing.assert_array_equal(moved["hamer_params"],
+                                      plain["hamer_params"])
+        np.testing.assert_allclose(moved["verts"], plain["verts"] + _Shifted.SHIFT,
+                                   rtol=0, atol=1e-6)
+
+
+def test_detector_pipeline_imports_no_hamer():
+    """ACR's pipeline knows no architecture that runs on its detections."""
+    import subprocess
+    import sys
+    code = ("import sys, acr_tpu_torch.pipeline.infer\n"
+            "print(sorted(m for m in ('acr_tpu_torch.pipeline.hamer',\n"
+            "                         'acr_tpu_torch.models.hamer')\n"
+            "             if m in sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code],
+                          cwd=os.path.join(HERE, ".."), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
 
 
 def test_config_and_cli(small, tmp_path):

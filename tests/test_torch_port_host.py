@@ -1,5 +1,5 @@
-"""The port's host-side copies equal the originals, every option passes
-``check_slice``, and neither an acr_tpu_torch module nor chip_smoke.py
+"""The port's host-side copies equal the originals, every option value
+the port runs validates in ``Config``, and neither an acr_tpu_torch module nor chip_smoke.py
 imports JAX, the JAX package, orbax or tensorstore."""
 
 import dataclasses
@@ -24,7 +24,6 @@ from acr_tpu_torch.pipeline import capture as tcapture
 from acr_tpu_torch.pipeline import preprocess as tpre
 from acr_tpu_torch.pipeline import results as tres
 from acr_tpu_torch.utils import meters as tmeters
-from acr_tpu_torch.pipeline.infer import check_slice
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -120,6 +119,14 @@ def test_meters_and_capture_copies_equal(module_pair, names):
             inspect.getsource(getattr(j, name)), name
 
 
+def validates(**override):
+    """``Config(**override)`` constructs, its validation passing, and
+    holds every value it was given."""
+    cfg = tconfig.Config(**override)
+    for name, value in override.items():
+        assert getattr(cfg, name) == value, name
+
+
 @pytest.mark.parametrize("override", [
     dict(data_parallel=2),
     dict(renderer="native"),
@@ -133,11 +140,11 @@ def test_last_options_accepted(override):
     # data parallelism (A14), the native renderer, the host solve and the
     # profiler trace (A15) run now, alone and together; so do the TPU
     # rewrites, the default slice and the streaming slice
-    check_slice(tconfig.Config(**override))
-    check_slice(tconfig.Config(s2d_highres=False, merged_heads=False))
+    validates(**override)
+    validates(s2d_highres=False, merged_heads=False)
     for mode in ("image", "folder", "video", "webcam"):
-        check_slice(tconfig.Config(demo_mode=mode, temporal_optimization=True,
-                                   render_size=2048, interactive_vis=True))
+        validates(demo_mode=mode, temporal_optimization=True,
+                  render_size=2048, interactive_vis=True)
 
 
 @pytest.mark.parametrize("override", [
@@ -148,7 +155,7 @@ def test_last_options_accepted(override):
 def test_throughput_options_accepted(override):
     # the throughput slice: the fused MANO kernel and video/folder mode
     # at val_batch_size > 1 (ROADMAP A12, A9b) run now
-    check_slice(tconfig.Config(**override))
+    validates(**override)
 
 
 @pytest.mark.parametrize("override", [
@@ -165,7 +172,7 @@ def test_throughput_options_accepted(override):
 ])
 def test_precision_and_aux_options_accepted(override):
     # bf16 (A6), the four int8 modes (A13) and the aux views (A10) run now
-    check_slice(tconfig.Config(**override))
+    validates(**override)
 
 
 def test_cli_data_parallel_over_one_card_raises_before_loading(monkeypatch,

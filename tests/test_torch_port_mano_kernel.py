@@ -123,7 +123,7 @@ def test_apply_mano_dispatch(models, monkeypatch):
                               (tmodel, 64, "pure")):
         poses, betas = (torch.from_numpy(a) for a in _inputs(batch, batch))
         calls.clear()
-        verts, joints, _ = infer._apply_mano(mano, poses, betas, 9)
+        verts, joints, _ = infer.apply_mano(mano, poses, betas, 9)
         assert calls == [want], (type(mano).__name__, batch)
         ref = real_pure(tmodel, poses, betas, center_idx=9)
         np.testing.assert_allclose(verts.numpy(), ref[0].numpy(), atol=1e-5)
