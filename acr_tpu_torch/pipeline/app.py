@@ -112,30 +112,43 @@ def readback(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 class StreamOutputs(dict):
     """A stream step's device outputs, with ``host``: a pinned host tensor
-    per output, its copy enqueued on the step's stream, and ``copied``: the
-    event recorded after those copies."""
+    per output, its copy enqueued on the step's stream; ``started`` and
+    ``copied``: timing events recorded at the front of the step and after
+    those copies; and ``waited_s``: the seconds ``unpack_stream`` waited
+    for ``copied``."""
 
     host: Dict[str, torch.Tensor]
+    started: torch.cuda.Event
     copied: torch.cuda.Event
+    waited_s: float = 0.0
+
+    def device_s(self) -> float:
+        """Device seconds from the step's front to its copies' event; once
+        unpacked."""
+        return self.started.elapsed_time(self.copied) / 1e3
 
 
-def _enqueue_readback(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """``out`` with its copies to pinned host memory enqueued and an event
-    after them, where every output is on one card; else ``out`` as it is.
-    Each output gets its own pinned tensor from the caching host allocator,
-    so an array a caller keeps holds only its own output's memory, and no
-    later step's copy reuses it while it lives."""
+def _enqueue_readback(out: Dict[str, torch.Tensor],
+                      started: Optional[torch.cuda.Event]
+                      ) -> Dict[str, torch.Tensor]:
+    """``out`` with its copies to pinned host memory enqueued and a timing
+    event after them, where every output is on one card and ``started`` was
+    recorded there; else ``out`` as it is. Each output gets its own pinned
+    tensor from the caching host allocator, so an array a caller keeps
+    holds only its own output's memory, and no later step's copy reuses it
+    while it lives."""
     devices = {v.device for v in out.values()}
     device = devices.pop() if len(devices) == 1 else None
-    if device is None or device.type != "cuda":
+    if device is None or device.type != "cuda" or started is None:
         return out
     res = StreamOutputs(out)
     res.host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
                 for k, v in out.items()}
+    res.started = started
     with torch.cuda.device(device):
         for k, v in out.items():
             res.host[k].copy_(v, non_blocking=True)
-        res.copied = torch.cuda.Event()
+        res.copied = torch.cuda.Event(enable_timing=True)
         res.copied.record()
     return res
 
@@ -431,13 +444,19 @@ class ACRApp:
         On a card the outputs' copies to pinned host memory are enqueued
         behind that work, with an event after them (``StreamOutputs``).
         Read it back with :meth:`unpack_stream`."""
+        started = None
+        device = self.pipeline.device
+        if device.type == "cuda":
+            started = torch.cuda.Event(enable_timing=True)
+            started.record(torch.cuda.current_stream(device))
         return _enqueue_readback(
-            self._frame_step(meta, probe=self.cfg.raster_overflow_every > 0))
+            self._frame_step(meta, probe=self.cfg.raster_overflow_every > 0),
+            started)
 
     def unpack_stream(self, out: Dict[str, torch.Tensor]) -> Dict:
         """The stream step's one readback: a wait for the step's own event
-        and numpy arrays over its pinned copies, else ``readback``; logs
-        the probe."""
+        and numpy arrays over its pinned copies (the wait's seconds in
+        ``out.waited_s``), else ``readback``; logs the probe."""
         copied = getattr(out, "copied", None)
         if copied is None:
             READBACK["sync"] += 1
@@ -446,7 +465,9 @@ class ACRApp:
             READBACK["event"] += 1
             if not copied.query():
                 READBACK["waited"] += 1
+                t0 = time.perf_counter()
                 copied.synchronize()
+                out.waited_s = time.perf_counter() - t0
             out = {k: v.numpy() for k, v in out.host.items()}
         self._consume_overflow_probe(out, n_frames=1)
         return out
@@ -762,7 +783,7 @@ class ACRApp:
 
     def run_webcam(self):
         from acr_tpu_torch.pipeline.capture import WebcamVideoStream
-        from acr_tpu_torch.pipeline.streaming import StreamingLoop
+        from acr_tpu_torch.pipeline.streaming import TURNS, StreamingLoop
         cap = WebcamVideoStream(self.cfg.cam_id).start()
 
         def show(rendered, _out):
@@ -783,10 +804,11 @@ class ACRApp:
                           if name == "issue.regress"]
             if frame_ms:
                 log.info("webcam p50 frame latency: %.1f ms%s; step graphs %s; "
-                         "readbacks %s", float(np.percentile(frame_ms, 50)),
+                         "readbacks %s; turns %s",
+                         float(np.percentile(frame_ms, 50)),
                          f" (issue.regress p50 {np.percentile(regress_ms, 50):.2f}"
                          " ms)" if regress_ms else "", dict(graphs.COUNTS),
-                         dict(READBACK))
+                         dict(READBACK), dict(TURNS))
 
     def run(self) -> Optional[Dict]:
         mode = self.cfg.demo_mode

@@ -27,7 +27,12 @@ weights with both hands forced detected, 512 px input:
 - the step's pinned copies and event are enqueued without a host wait;
 - over 200 frames that keep only ``verts``, the pinned memory held grows
   by those arrays alone, every frame reads back on its event and no
-  input staging waits for its pinned buffer.
+  input staging waits for its pinned buffer;
+- over 40 tracking frames from a source paced at 30 frames a second, the
+  loop delivers each frame in its own turn once ``DrainRule`` has its run
+  of reads, each such readback waits for its frame's step, and every
+  output, the OneEuro state included, equals an unpaced loop's (one frame
+  in flight, never drained) bit for bit.
 """
 
 import os
@@ -44,7 +49,9 @@ from acr_tpu_torch.pipeline import graphs
 from acr_tpu_torch.pipeline import infer
 from acr_tpu_torch.pipeline.app import READBACK, ACRApp, StreamOutputs
 from acr_tpu_torch.pipeline.preprocess import img_preprocess
-from acr_tpu_torch.pipeline.streaming import StreamingLoop, SyntheticSource
+from acr_tpu_torch.pipeline import streaming
+from acr_tpu_torch.pipeline.streaming import (DrainRule, StreamingLoop,
+                                              SyntheticSource)
 from acr_tpu_torch.viz import raster_cuda as rc
 from test_torch_port_precision_cuda import _weights
 
@@ -145,9 +152,13 @@ class Frames:
 
 def _run(app, frames):
     """The frames through ``StreamingLoop``: each frame's host outputs."""
+    return _run_source(app, Frames(frames))
+
+
+def _run_source(app, source):
     outs = []
     StreamingLoop(app, on_result=lambda img, out: outs.append(out)).run(
-        Frames(frames))
+        source)
     return outs
 
 
@@ -425,3 +436,54 @@ def test_kept_outputs_hold_only_their_memory(tmp_path):
 def _block(nbytes):
     """The caching host allocator's block: the next power of two."""
     return 1 << (nbytes - 1).bit_length()
+
+
+# --- each frame in its own turn where the camera leaves room ---
+
+class PacedFrames(Frames):
+    """``Frames`` at ``fps``: a read sleeps until its frame's capture."""
+
+    def __init__(self, frames, fps=30.0):
+        super().__init__(frames)
+        self.period, self.t0, self.k = 1.0 / fps, None, 0
+
+    def read(self):
+        now = time.perf_counter()
+        if self.t0 is None:
+            self.t0 = now
+        wait = self.t0 + self.k * self.period - now
+        if wait > 0:
+            time.sleep(wait)
+        self.k += 1
+        return super().read()
+
+
+@pytest.mark.cuda
+def test_paced_tracking_drains(tmp_path):
+    _need_card()
+    n = 40
+    params = _weights()
+    frames = SyntheticSource(n, *FRAME_HW, seed=6).frames
+
+    def run(name, source):
+        app = ACRApp(_cfg(tmp_path, name, visual=False), params=params,
+                     device="cuda")
+        _run(app, _frames(3))                       # warm-up, capture
+        torch.cuda.synchronize()
+        READBACK.clear()
+        streaming.TURNS.clear()
+        outs = _run_source(app, source)
+        return app, outs, dict(READBACK), dict(streaming.TURNS)
+
+    app, got, readbacks, turns = run("paced", PacedFrames(frames))
+    ref, want, _, ref_turns = run("inflight", Frames(frames))
+    assert ref_turns == {"inflight": n}
+    assert turns["inflight"] >= DrainRule.ENTER + 1, turns
+    assert turns["drained"] + turns["inflight"] == n
+    assert turns["drained"] >= n // 2, turns
+    assert readbacks["event"] == n and "sync" not in readbacks
+    assert readbacks["waited"] >= turns["drained"], (readbacks, turns)
+    assert_same_steps(got, want)
+    for g, w in zip(_state(app), _state(ref)):
+        assert torch.equal(g, w)
+

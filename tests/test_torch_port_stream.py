@@ -13,10 +13,21 @@ CPU the loop reads each frame back through ``readback``: over eight
 frames, with and without ``-t`` and render, it delivers what a plain
 ``stream_step`` and ``readback`` give, bit for bit, and ``READBACK``
 counts a ``sync`` a frame and no ``event``.
+
+When to deliver a frame (``DrainRule``): fed synthetic (block, wait)
+sequences, the rule enters drain mode only after ``ENTER`` reads in a
+row blocked longer than the wait by more than the margin, never while
+the block is below the wait, stays while the reads still block, and
+leaves at the first read that does not; ``TURNS`` counts each turn once.
+Through the loop, a source whose read sleeps 20 ms drains once the rule
+has its run of reads (each drained frame delivered before the next read)
+and an unpaced one never does; either way the outputs and the OneEuro
+state equal the in-flight loop's bit for bit, and JAX's loop as above.
 """
 
 import os
 import pickle
+import time
 
 import numpy as np
 import pytest
@@ -36,7 +47,9 @@ from acr_tpu_torch.pipeline import app as app_mod
 from acr_tpu_torch.pipeline.app import ACRApp, readback
 from acr_tpu_torch.pipeline.preprocess import img_preprocess
 from acr_tpu_torch.pipeline.results import reorganize_results
-from acr_tpu_torch.pipeline.streaming import StreamingLoop, SyntheticSource
+from acr_tpu_torch.pipeline import streaming
+from acr_tpu_torch.pipeline.streaming import (DrainRule, StreamingLoop,
+                                              SyntheticSource)
 from test_torch_port_app import MANO_DIR, flat  # noqa: F401 (fixture)
 
 torch.set_num_threads(2)
@@ -209,6 +222,132 @@ def test_streaming_loop_delivers_plain_readback(flat, tmp_path, temporal,
         for key in want:
             assert out[key].dtype == want[key].dtype, key
             np.testing.assert_array_equal(out[key], want[key], err_msg=key)
+
+
+# --- when a frame is delivered ---
+
+MS = 1e-3
+ENTER = DrainRule.ENTER
+
+
+def _jitter(i):
+    return 0.01 * MS * (i % 3)
+
+
+# (block ms, wait ms) per turn, and the first turn of each mode switch:
+# the wait read back in a turn is seen from the next turn's read on
+TURN_CASES = {
+    # a run of ENTER blocked reads after the first turn, which has no wait
+    "enters": ([(20, 5)] * 20, {1 + ENTER - 1: True}),
+    # a read below the wait breaks the run; it starts again after it
+    "run_broken": ([(20, 5)] * (ENTER - 2) + [(4, 5)] + [(20, 5)] * 14,
+                   {2 * ENTER - 2: True}),
+    # the drained turns still block, by less than before: it stays
+    "stays": ([(20, 5)] * 12 + [(15, 5)] * 8, {ENTER: True}),
+    # the first read that does not block leaves, and the run starts anew
+    "leaves": ([(20, 5)] * 12 + [(0, 5)] + [(20, 5)] * 12,
+               {ENTER: True, 12: False, 12 + ENTER: True}),
+    # never while the read blocks less than the wait, however long
+    "below_wait": ([(4, 5)] * 60, {}),
+}
+
+
+@pytest.mark.parametrize("case", TURN_CASES)
+def test_drain_rule_enters_and_leaves(case):
+    turns, switches = TURN_CASES[case]
+    streaming.TURNS.clear()
+    rule, got = DrainRule(), []
+    for i, (blocked, wait) in enumerate(turns):
+        got.append(rule.read(blocked * MS + _jitter(i)))
+        rule.done(1 * MS + _jitter(i + 1), wait * MS)
+    want, mode = [], False
+    for i in range(len(turns)):
+        mode = switches.get(i, mode)
+        want.append(mode)
+    assert got == want
+    left = sum(1 for a, b in zip(want, want[1:]) if a and not b)
+    assert dict(streaming.TURNS) == {
+        k: v for k, v in (("drained", sum(want)),
+                          ("inflight", len(want) - sum(want)),
+                          ("left", left)) if v}
+
+
+class Logged:
+    """``SyntheticSource``'s frames from a read that sleeps ``sleep_s``
+    first; logs each read."""
+
+    def __init__(self, source, log, sleep_s):
+        self.source, self.log, self.sleep_s = source, log, sleep_s
+
+    def read(self):
+        time.sleep(self.sleep_s)
+        frame = self.source.read()
+        if frame is not None:
+            self.log.append(("read", self.source.idx - 1))
+        return frame
+
+
+@pytest.mark.parametrize("paced", [True, False], ids=["paced", "unpaced"])
+def test_loop_drains_where_the_read_blocks(flat, tmp_path, paced):
+    n = ENTER + 5
+
+    def run(name, source, log):
+        app = ACRApp(Config(**_kw(tmp_path, name)), params=from_flax(flat),
+                     device="cpu")
+        got = []
+
+        def deliver(img, out):
+            log.append(("deliver", len(got)))
+            got.append((img, out))
+        assert StreamingLoop(app, on_result=deliver).run(source) == n
+        return app, got
+
+    streaming.TURNS.clear()
+    log = []
+    app, got = run("loop", Logged(SyntheticSource(n), log,
+                                  0.02 if paced else 0.0), log)
+    turns = dict(streaming.TURNS)
+    # the first turn has no wait, then ENTER reads make the run
+    drained = n - ENTER - 1 if paced else 0
+    assert turns == ({"drained": drained, "inflight": n - drained}
+                     if drained else {"inflight": n})
+    # each turn reads its frame, then delivers the frame before it, or,
+    # drained, its own
+    first, order = n - drained, []
+    for k in range(n):
+        order.append(("read", k))
+        if 0 < k <= first:
+            order.append(("deliver", k - 1))
+        if k >= first:
+            order.append(("deliver", k))
+    if first == n:
+        order.append(("deliver", n - 1))
+    assert log == order
+    # the in-flight loop's outputs and state, bit for bit
+    ref_app, want = run("inflight", SyntheticSource(n), [])
+    for (g_img, g_out), (w_img, w_out) in zip(got, want):
+        np.testing.assert_array_equal(g_img, w_img)
+        assert g_out.keys() == w_out.keys()
+        for key in w_out:
+            np.testing.assert_array_equal(g_out[key], w_out[key], err_msg=key)
+    for g, w in zip(state_leaves(app.filter_state),
+                    state_leaves(ref_app.filter_state)):
+        np.testing.assert_array_equal(g, w)
+    if not paced:
+        return
+    # and JAX's loop, as test_streaming_loop_matches_jax holds them
+    japp = JaxACRApp(JaxConfig(**_kw(tmp_path, "jax")),
+                     params=unflatten_params(flat))
+    jax_out = []
+    JaxStreamingLoop(japp, on_result=lambda img, out: jax_out.append(
+        out)).run(JaxSyntheticSource(n))
+    assert len(jax_out) == n
+    for k, ((_, g_out), w_out) in enumerate(zip(got, jax_out)):
+        assert_same_results(reorganize_results(g_out, [str(k)]),
+                            reorganize_results(w_out, [str(k)]))
+    for g, w in zip(state_leaves(app.filter_state),
+                    jax.tree.leaves(japp.filter_state)):
+        np.testing.assert_allclose(g, np.asarray(w), atol=1e-5)
 
 
 @pytest.fixture(scope="module")
