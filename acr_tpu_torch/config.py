@@ -31,7 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the fields the port has and acr_tpu's Config has not
-PORT_ONLY = ("architecture",)
+PORT_ONLY = ("architecture", "detector")
 
 
 @dataclass
@@ -132,7 +132,10 @@ class Config:
 
     # ------ port only: not in acr_tpu's Config (PORT_ONLY) ------
     architecture: str = "acr"                    # acr | hamer: ACR's heads, or HaMeR
-                                                 # (pipeline/hamer.py) on ACR's detections
+                                                 # (pipeline/hamer.py) on the detector's hands
+    detector: str = "acr"                        # acr | vitdet: HaMeR's hands from ACR's
+                                                 # network, or from ViTDet-H and ViTPose-H
+                                                 # (pipeline/vitdet.py, input_size 1024)
 
     # free-form overflow for YAML keys that aren't first-class fields
     extras: Dict[str, Any] = field(default_factory=dict)
@@ -231,6 +234,11 @@ class Config:
                 "architecture='hamer' runs in fp32 on one device with the "
                 "device translation: model_precision='fp32', quantize="
                 "'none', data_parallel=1, jit_translation_solve=True")
+        if self.detector not in ("acr", "vitdet"):
+            raise ValueError(f"detector must be acr|vitdet, got {self.detector!r}")
+        if self.detector == "vitdet" and self.architecture != "hamer":
+            raise ValueError("detector='vitdet' boxes HaMeR's hands: it needs "
+                             "architecture='hamer'")
         if not self.kernel_sizes:
             raise ValueError("kernel_sizes must be non-empty (the last "
                              "entry selects the NMS pool kernel)")

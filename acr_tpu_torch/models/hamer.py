@@ -19,7 +19,10 @@ with Transformers", CVPR 2024, arXiv 2312.05251).
 
 The widths are HaMeR's, in ``DIMS``; the modules' names are those of
 HaMeR's checkpoint (``backbone.*``, ``mano_head.*``). Every attention is
-``F.scaled_dot_product_attention``.
+``F.scaled_dot_product_attention``. The ViT is also ViTPose-H's backbone
+(``models/vitpose.py``), and its ``Block`` ViTDet-H's (``models/vitdet.py``)
+with a window (``window_attention``) and decomposed relative positions
+(``rel_pos_bias``, an additive bias); HaMeR's blocks have neither.
 
 HaMeR's 6D layout differs from ACR's (``ops.rotations.rot6d_to_rotmat``):
 the six numbers are two rows of three, ``x.view(-1, 2, 3).transpose(1,
@@ -79,19 +82,67 @@ class PatchEmbed(nn.Module):
         return self.proj(x).flatten(2).transpose(1, 2)
 
 
+def rel_pos_bias(q: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor,
+                 side: int) -> torch.Tensor:
+    """ViTDet's decomposed relative positions (detectron2
+    ``add_decomposed_rel_pos``) as an additive attention bias: q (B, H, N,
+    C) over a square grid of ``side`` (N = side^2), tables (2 side - 1,
+    C) -> (B, H, N, N), ``bias[(i, j), (k, l)] = q[(i, j)] . rel_h[i - k +
+    side - 1] + q[(i, j)] . rel_w[j - l + side - 1]``, from the unscaled q."""
+    b, h, n, c = q.shape
+    idx = torch.arange(side, device=q.device)
+    idx = idx[:, None] - idx[None, :] + (side - 1)
+    r_q = q.reshape(b, h, side, side, c)
+    along_h = torch.einsum("bhyxc,ykc->bhyxk", r_q, rel_h[idx])
+    along_w = torch.einsum("bhyxc,xkc->bhyxk", r_q, rel_w[idx])
+    return (along_h[..., :, None] + along_w[..., None, :]).reshape(b, h, n, n)
+
+
 class ViTAttention(nn.Module):
-    def __init__(self, d: Dims):
+    """Multi-head self-attention; with ``rel_pos`` (the side of a square
+    grid) ViTDet's decomposed relative-position tables ``rel_pos_h`` and
+    ``rel_pos_w`` (2 rel_pos - 1, head width) add their bias."""
+
+    def __init__(self, d: Dims, rel_pos: int = 0):
         super().__init__()
         self.heads = d.heads
         self.qkv = nn.Linear(d.width, 3 * d.width)
         self.proj = nn.Linear(d.width, d.width)
+        self.rel_pos = rel_pos
+        if rel_pos:
+            self.rel_pos_h = nn.Parameter(torch.zeros(2 * rel_pos - 1,
+                                                      d.width // d.heads))
+            self.rel_pos_w = nn.Parameter(torch.zeros(2 * rel_pos - 1,
+                                                      d.width // d.heads))
 
     def forward(self, x):
         b, n, c = x.shape
         q, k, v = self.qkv(x).reshape(b, n, 3, self.heads, c // self.heads
                                       ).permute(2, 0, 3, 1, 4)
-        out = F.scaled_dot_product_attention(q, k, v)
+        if self.rel_pos:
+            bias = rel_pos_bias(q, self.rel_pos_h, self.rel_pos_w, self.rel_pos)
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+        else:
+            out = F.scaled_dot_product_attention(q, k, v)
         return self.proj(out.transpose(1, 2).reshape(b, n, c))
+
+
+def window_attention(attn: nn.Module, x: torch.Tensor, hw, window: int
+                     ) -> torch.Tensor:
+    """``attn`` within ``window`` x ``window`` windows of the (H, W) grid of
+    tokens x (B, H * W, C): the grid zero-padded at the bottom and right
+    to whole windows, the padded tokens attended as keys, the result
+    merged and cropped (detectron2 ``window_partition`` and
+    ``window_unpartition``)."""
+    b, n, c = x.shape
+    h, w = hw
+    ph, pw = (-h) % window, (-w) % window
+    x = F.pad(x.view(b, h, w, c), (0, 0, 0, pw, 0, ph))
+    gh, gw = (h + ph) // window, (w + pw) // window
+    x = x.view(b, gh, window, gw, window, c).permute(0, 1, 3, 2, 4, 5)
+    x = attn(x.reshape(b * gh * gw, window * window, c))
+    x = x.view(b, gh, gw, window, window, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h + ph, w + pw, c)[:, :h, :w].reshape(b, n, c)
 
 
 class Mlp(nn.Module):
@@ -105,15 +156,24 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, d: Dims):
+    """``x += attn(LN(x)); x += MLP(LN(x))``; with ``window`` the attention
+    runs within windows of the token grid ``hw`` (``window_attention``),
+    and with ``rel_pos`` it carries relative positions (``ViTAttention``):
+    ViTDet's blocks. HaMeR's and ViTPose's have neither."""
+
+    def __init__(self, d: Dims, window: int = 0, rel_pos: int = 0):
         super().__init__()
         self.norm1 = nn.LayerNorm(d.width, eps=1e-6)
-        self.attn = ViTAttention(d)
+        self.attn = ViTAttention(d, rel_pos)
         self.norm2 = nn.LayerNorm(d.width, eps=1e-6)
         self.mlp = Mlp(d)
+        self.window = window
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x))
+    def forward(self, x, hw=None):
+        if self.window:
+            x = x + window_attention(self.attn, self.norm1(x), hw, self.window)
+        else:
+            x = x + self.attn(self.norm1(x))
         return x + self.mlp(self.norm2(x))
 
 

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels: one shared library from every
 source in ``csrc/``.
 
-At first use each source (``csrc/raster.cu``, ``csrc/mano.cu``) is
+At first use each source (``csrc/raster.cu``, ``csrc/mano.cu``,
+``csrc/detect.cu``) is
 compiled by its own ``nvcc`` process for ``sm_90a``, all started
 together, and the objects are linked into one shared library with a plain
 C interface under ``build/torch_ext/<hash of the sources and flags>/`` in
@@ -28,16 +29,19 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
 SOURCES = tuple(os.path.join(_PKG, "csrc", name)
-                for name in ("raster.cu", "mano.cu"))
+                for name in ("raster.cu", "mano.cu", "detect.cu"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libacr_kernels.so"
-# argument kinds of each C launcher: p a pointer (or the stream), i an int
+# argument kinds of each C launcher: p a pointer (or the stream), i an int,
+# f a float
 _SIGNATURES = {
     "acr_raster_flat": "pppiiippppp",
     "acr_raster_binned": "ppppipiiiippppp",
     "acr_raster_banded": "pppiiiiiippppp",
     "acr_mano_fused": "ppppipp",
+    "acr_nms": "ppfiipp",
+    "acr_roi_align": "ppppiiifppiipp",
 }
 _lib = None
 _lib_lock = threading.Lock()
@@ -102,7 +106,8 @@ def library():
         if _lib is None:
             so, _ = build_extension()
             lib = ctypes.CDLL(so)
-            kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+            kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+                     "f": ctypes.c_float}
             for name, sig in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = [kinds[k] for k in sig]

@@ -23,7 +23,14 @@ once, at the front of the step (``graphs.Inputs``), and the step waits
 for nothing on the host. The smooth graph keeps the OneEuro state in
 static tensors and advances it in place.
 
-With ``architecture='hamer'`` ACR's pipeline is the detector and
+With ``detector='vitdet'`` the pipeline is ``pipeline.vitdet
+.ViTDetPipeline`` (ViTDet-H, ViTPose-H and the hand keypoints, in
+``issue.detect``, a CUDA graph ``StepGraph("detect")`` at batch 1) in
+ACR's place, called as ACR's is; the frame is preprocessed for it
+(``preprocess.vitdet_preprocess``) and each readback adds its counts to
+``vitdet.DETECT``.
+
+With ``architecture='hamer'`` the pipeline is the detector and
 ``regressor`` (``pipeline.hamer.Regressor``) runs HaMeR on its hands, a
 stage of its own between the forward and OneEuro (``issue.regress``, a
 fourth CUDA graph at batch 1) that ends in HaMeR's MANO and camera
@@ -87,7 +94,6 @@ from acr_tpu_torch.io.writers import (
 )
 from acr_tpu_torch.pipeline import graphs, hamer
 from acr_tpu_torch.pipeline.infer import ACRPipeline
-from acr_tpu_torch.pipeline.preprocess import img_preprocess
 from acr_tpu_torch.pipeline.results import reorganize_results
 from acr_tpu_torch.pipeline.temporal import init_two_hand_filter, smooth_sequence
 from acr_tpu_torch.utils.meters import SpanTimer
@@ -203,9 +209,18 @@ class ACRApp:
                             if k.startswith("hamer.")}
             params = {k: v for k, v in params.items()
                       if not k.startswith("hamer.")}
-        self.pipeline = ACRPipeline(cfg, params=params, device=device,
-                                    merge_params=merge_params,
-                                    devices=devices)
+        self.timer = SpanTimer()
+        # the detector: ACR's network, or ViTDet-H and ViTPose-H; either is
+        # the pipeline the step calls first, and owns its span, its
+        # preprocess, the hands it hands on and its counts
+        if cfg.detector == "vitdet":
+            from acr_tpu_torch.pipeline.vitdet import ViTDetPipeline
+            self.pipeline = ViTDetPipeline(cfg, params=params, device=device)
+            self.pipeline.stage = self.timer.stage
+        else:
+            self.pipeline = ACRPipeline(cfg, params=params, device=device,
+                                        merge_params=merge_params,
+                                        devices=devices)
         mesh = self.pipeline.mesh
         # the architecture's regress stage, if any, and the output that
         # its mesh tail (``ACRPipeline.refine``) takes as the camera
@@ -266,7 +281,6 @@ class ACRApp:
         self._render_graph = graphs.StepGraph("render", self.pipeline.device)
         self._graph_state = None
         self.output_dir = cfg.output_dir or "./demos_outputs/"
-        self.timer = SpanTimer()
         self._frame_idx = 0
         self._probe_frame_idx = 0
         self._imshow_warned = False
@@ -293,7 +307,7 @@ class ACRApp:
         offsets = torch.as_tensor(offsets, dtype=torch.float32)
         why = self.pipeline.graph_block(image.shape[0])
         with torch.no_grad():
-            with timer.stage("issue.forward"):
+            with timer.stage(self.pipeline.span):
                 staged = self._inputs(why, {"image": image, "offsets": offsets})
                 image, offsets = staged["image"], staged["offsets"]
                 out = self.pipeline(image, offsets, return_maps=return_maps,
@@ -321,17 +335,17 @@ class ACRApp:
         on its poses and betas; eagerly with the nested stages
         ``regress.crop`` and ``regress.net``."""
         hamer.CROPS["crops"] += 2 * image.shape[0]
+        inputs = dict(self.pipeline.hand_inputs(image, out),
+                      detection_flag=out["detection_flag"], offsets=offsets)
 
         def regress(d, stage=contextlib.nullcontext):      # no spans
-            res = self.regressor.regress(d["image"], d["pj2d"],
+            image, joints, valid = self.pipeline.hands(d)
+            res = self.regressor.regress(image, joints, valid,
                                          d["detection_flag"], stage)
             res.update(self._refine(dict(res, offsets=d["offsets"])))
             return res
-        return self._regress_graph(
-            why, None, regress,
-            {"image": image, "pj2d": out["pj2d"],
-             "detection_flag": out["detection_flag"], "offsets": offsets},
-            eager=lambda d: regress(d, self.timer.stage))
+        return self._regress_graph(why, None, regress, inputs,
+                                   eager=lambda d: regress(d, self.timer.stage))
 
     def _smooth(self, why: Optional[str], out: Dict[str, torch.Tensor],
                 offsets: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -436,7 +450,9 @@ class ACRApp:
                                and self._frame_idx % every == 0,
                                return_maps=self._need_maps)
         self._frame_idx += 1
-        return readback(out)
+        out = readback(out)
+        self.pipeline.count(out)
+        return out
 
     def stream_step(self, meta: Dict) -> Dict[str, torch.Tensor]:
         """The streaming loop's step: the device work of one frame, with
@@ -470,6 +486,7 @@ class ACRApp:
                 out.waited_s = time.perf_counter() - t0
             out = {k: v.numpy() for k, v in out.host.items()}
         self._consume_overflow_probe(out, n_frames=1)
+        self.pipeline.count(out)
         return out
 
     def _consume_overflow_probe(self, out: Dict, n_frames: int = 1):
@@ -514,8 +531,8 @@ class ACRApp:
                       ) -> Dict[str, list]:
         """Full per-frame stack; returns the reference-format results dict."""
         with self.timer.stage("preprocess", path):
-            meta = img_preprocess(bgr_frame, path,
-                                  input_size=self.cfg.input_size)
+            meta = self.pipeline.preprocess(bgr_frame, path,
+                                    input_size=self.cfg.input_size)
         with self.timer.stage("device_step", path):
             out = self.device_step(meta)
         self.last_output = out              # the frame's host outputs
@@ -716,7 +733,8 @@ class ACRApp:
         def prep_chunk(batch_paths):
             t0 = time.perf_counter()
             frames = [read_frame(p) for p in batch_paths]
-            metas = [img_preprocess(f, p, input_size=self.cfg.input_size)
+            metas = [self.pipeline.preprocess(f, p,
+                                              input_size=self.cfg.input_size)
                      for f, p in zip(frames, batch_paths)]
             img_c = np.concatenate([m["image"] for m in metas])
             off_c = np.concatenate([m["offsets"] for m in metas])
@@ -754,6 +772,7 @@ class ACRApp:
             with self.timer.stage("device_step"):
                 o = readback(self.chunk_step(img_c, off_c))
                 self._consume_overflow_probe(o, n_frames=len(batch_paths))
+                self.pipeline.count(o)
             keep = bs - pad
             chunk = {k: v[:keep] for k, v in o.items()}
             if not self.cfg.jit_translation_solve:
@@ -804,11 +823,12 @@ class ACRApp:
                           if name == "issue.regress"]
             if frame_ms:
                 log.info("webcam p50 frame latency: %.1f ms%s; step graphs %s; "
-                         "readbacks %s; turns %s",
+                         "readbacks %s; turns %s%s",
                          float(np.percentile(frame_ms, 50)),
                          f" (issue.regress p50 {np.percentile(regress_ms, 50):.2f}"
                          " ms)" if regress_ms else "", dict(graphs.COUNTS),
-                         dict(READBACK), dict(TURNS))
+                         dict(READBACK), dict(TURNS),
+                         self.pipeline.counts_text())
 
     def run(self) -> Optional[Dict]:
         mode = self.cfg.demo_mode

@@ -31,8 +31,9 @@ passes the reason it found, or None, and ``StepGraph`` either replays or
 counts the reason and runs the stage eagerly. ``COUNTS``
 counts the captures, the replays, the eager steps with their reasons and
 the stagings that waited for their pinned buffer, beside
-``mano_kernel.LAUNCHES`` and ``raster_cuda.LAUNCHES``, which a replay
-advances by the kernel launches it holds.
+``mano_kernel.LAUNCHES``, ``raster_cuda.LAUNCHES`` and
+``detect.LAUNCHES``, which a replay advances by the kernel launches it
+holds.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from typing import Callable, Dict, Hashable, List, Optional, Tuple
 
 import torch
 
-from acr_tpu_torch.ops import mano_kernel
+from acr_tpu_torch.ops import detect, mano_kernel
 from acr_tpu_torch.viz import raster_cuda
 
 log = logging.getLogger("acr_tpu_torch")
@@ -55,7 +56,8 @@ log = logging.getLogger("acr_tpu_torch")
 COUNTS: Dict[str, int] = collections.Counter()
 
 # the launch counters a replay advances
-_LAUNCH_COUNTERS = (mano_kernel.LAUNCHES, raster_cuda.LAUNCHES)
+_LAUNCH_COUNTERS = (mano_kernel.LAUNCHES, raster_cuda.LAUNCHES,
+                    detect.LAUNCHES)
 
 # bytes from one output to the next in the output buffer: the alignment
 # of a fresh allocation, as far as a kernel's choice can see it
@@ -166,8 +168,8 @@ def _view(buffer: torch.Tensor, at: int, nbytes: int, dtype: torch.dtype,
 
 
 class StepGraph:
-    """One stage of the step (``name``: forward, regress, smooth or
-    render) on a CUDA device, through a graph per key once it has run
+    """One stage of the step (``name``: forward or detect, regress, smooth
+    or render) on a CUDA device, through a graph per key once it has run
     eagerly once."""
 
     def __init__(self, name: str, device: torch.device):

@@ -1,11 +1,13 @@
 """HaMeR on the detector's hands: the crop stage, the network and the
 camera, on the device at a fixed shape of two crops a frame.
 
-The box of each hand is HaMeR's demo's, from the 21 projected joints of
-ACR's detection (``pj2d``) in the pixels of the letterboxed network
-input: the joints' min/max box, its centre, its size times 2.0 (the
-demo's ``rescale_factor``) widened to the aspect 192:256, and the larger
-side (``boxes_from_joints``: (cx, cy, side) per hand).
+The box of each hand is HaMeR's demo's, from the detector's joints in the
+pixels of the step's input: ACR's 21 projected joints (``pj2d``) of the
+letterboxed network input, or ViTPose's valid hand keypoints in the 1024
+px resized frame (``pipeline/vitdet.py``): the joints' min/max box, its
+centre, its size times 2.0 (the demo's ``rescale_factor``) widened to
+the aspect 192:256, and the larger side (``boxes_from_joints``: (cx, cy,
+side) per hand).
 
 The crop (``crops``) is the demo's ``ViTDetDataset``: where the box is
 more than 1.1 x twice the crop's side, the image is first blurred with a
@@ -17,9 +19,10 @@ to ``BLUR_RADIUS``); then an affine bilinear warp of the box onto a
 (its box centre mirrored, as the demo flips the image); then the
 ImageNet normalisation and the middle 192 columns. The network input is
 RGB already, so no channel swap is needed. Crops of undetected hands are
-zero. Unlike the demo, the crop comes from the 512 px input the step
-already holds, not from the camera frame, and is sampled in float32 at
-exact positions (cv2 rounds positions to 1/32 px).
+zero. Unlike the demo, the crop comes from the input the step already
+holds (ACR's 512 px letterbox, or ViTDet's 1024 px resized frame), not
+from the camera frame, and is sampled in float32 at exact positions (cv2
+rounds positions to 1/32 px).
 
 The network (``models.hamer.HaMeR``) regresses right-hand MANO in the
 crop; the rotations are turned into axis-angle, the parser's output
@@ -67,13 +70,20 @@ MEAN = (0.485 * 255, 0.456 * 255, 0.406 * 255)
 STD = (0.229 * 255, 0.224 * 255, 0.225 * 255)
 
 
-def boxes_from_joints(pj2d: torch.Tensor, input_size: int,
-                      dims: hamer_model.Dims) -> torch.Tensor:
-    """pj2d (B, 2, 21, 2) in [-1, 1] -> boxes (B, 2, 3): centre x, y and
-    side in input pixels. Widening (w, h) to the aspect crop_w:crop and
-    taking the larger side is ``max(h, w * crop / crop_w)``."""
-    px = (pj2d + 1.0) * (input_size / 2.0)
-    lo, hi = px.amin(-2), px.amax(-2)
+def boxes_from_joints(px: torch.Tensor, dims: hamer_model.Dims,
+                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Joints px (B, 2, 21, 2) in input pixels -> boxes (B, 2, 3): centre
+    x, y and side in input pixels. Widening (w, h) to the aspect
+    crop_w:crop and taking the larger side is ``max(h, w * crop /
+    crop_w)``. With ``valid`` (B, 2, 21) the box spans the valid joints
+    alone (the demo's rule on ViTPose's keypoints), and all 21 of a hand
+    with none."""
+    if valid is None:
+        lo, hi = px.amin(-2), px.amax(-2)
+    else:
+        valid = (valid | ~valid.any(-1, keepdim=True))[..., None]
+        lo = torch.where(valid, px, torch.full_like(px, float("inf"))).amin(-2)
+        hi = torch.where(valid, px, torch.full_like(px, float("-inf"))).amax(-2)
     wh = RESCALE * (hi - lo)
     side = torch.maximum(wh[..., 1], wh[..., 0] * (dims.crop / dims.crop_w))
     return torch.cat([(lo + hi) / 2.0, side[..., None]], -1)
@@ -95,18 +105,18 @@ def blur_kernels(side: torch.Tensor, dims: hamer_model.Dims) -> torch.Tensor:
 
 
 def blur(images: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
-    """images (N, 3, S, S) float, each through its own separable kernel
+    """images (N, 3, H, W) float, each through its own separable kernel
     (N, K), rows then columns, nearest edges."""
-    n, c, s, _ = images.shape
+    n, c, h, w_ = images.shape
     r = kernels.shape[1] // 2
     w = kernels.repeat_interleave(c, 0)
-    x = F.pad(images.reshape(1, n * c, s, s), (r, r, r, r), mode="replicate")
+    x = F.pad(images.reshape(1, n * c, h, w_), (r, r, r, r), mode="replicate")
     x = F.conv2d(x, w[:, None, :, None], groups=n * c)
     x = F.conv2d(x, w[:, None, None, :], groups=n * c)
-    return x.reshape(n, c, s, s)
+    return x.reshape(n, c, h, w_)
 
 
-def _lerp(images: torch.Tensor, pos: torch.Tensor, dim: int) -> torch.Tensor:
+def lerp(images: torch.Tensor, pos: torch.Tensor, dim: int) -> torch.Tensor:
     """Linear interpolation of ``images`` (N, C, H, W) along ``dim`` (2 or
     3) at positions ``pos`` (N, P), zero outside."""
     size = images.shape[dim]
@@ -127,14 +137,15 @@ def _lerp(images: torch.Tensor, pos: torch.Tensor, dim: int) -> torch.Tensor:
 
 def crops(image: torch.Tensor, boxes: torch.Tensor, detected: torch.Tensor,
           dims: hamer_model.Dims) -> torch.Tensor:
-    """image uint8 (B, S, S, 3) RGB, boxes (B, 2, 3), detected (B, 2) ->
-    normalised crops (B * 2, 3, crop, crop_w), left hand first."""
-    b, s = image.shape[0], image.shape[1]
+    """image (B, H, W, 3) RGB, uint8 or float in 0..255, boxes (B, 2, 3),
+    detected (B, 2) -> normalised crops (B * 2, 3, crop, crop_w), left
+    hand first."""
+    b, h, w = image.shape[:3]
     n = 2 * b
     dev = image.device
-    img = image.permute(0, 3, 1, 2).float()[:, None].expand(b, 2, 3, s, s)
+    img = image.permute(0, 3, 1, 2).float()[:, None].expand(b, 2, 3, h, w)
     box = boxes.reshape(n, 3)
-    img = blur(img.reshape(n, 3, s, s), blur_kernels(box[:, 2], dims))
+    img = blur(img.reshape(n, 3, h, w), blur_kernels(box[:, 2], dims))
     k = box[:, 2:3] / dims.crop
     half = dims.crop / 2.0
     cut = (dims.crop - dims.crop_w) // 2
@@ -143,8 +154,8 @@ def crops(image: torch.Tensor, boxes: torch.Tensor, detected: torch.Tensor,
                         dtype=torch.float32) - half
     # the left hand (even rows) samples the image mirrored about its centre
     sign = (torch.arange(n, device=dev) % 2).to(torch.float32)[:, None] * 2.0 - 1.0
-    img = _lerp(img, box[:, 1:2] + rows[None] * k, 2)
-    img = _lerp(img, box[:, 0:1] + sign * cols[None] * k, 3)
+    img = lerp(img, box[:, 1:2] + rows[None] * k, 2)
+    img = lerp(img, box[:, 0:1] + sign * cols[None] * k, 3)
     img = torch.stack([(img[:, c] - MEAN[c]) / STD[c] for c in range(3)], 1)
     return torch.where(detected.reshape(n, 1, 1, 1), img, torch.zeros_like(img))
 
@@ -203,16 +214,18 @@ class Regressor:
         self.net.eval().requires_grad_(False)
 
     @torch.no_grad()
-    def regress(self, image: torch.Tensor, pj2d: torch.Tensor,
-                detected: torch.Tensor, stage=contextlib.nullcontext
-                ) -> Dict[str, torch.Tensor]:
-        """The crops, the network and the camera: ``hamer_params`` (B, 2,
-        109, the regressed 6D pose, betas and crop camera), ``boxes``,
+    def regress(self, image: torch.Tensor, joints: torch.Tensor,
+                valid: Optional[torch.Tensor], detected: torch.Tensor,
+                stage=contextlib.nullcontext) -> Dict[str, torch.Tensor]:
+        """The crops of ``image`` (B, H, W, 3) around each hand's
+        ``joints`` (B, 2, 21, 2, input pixels; with ``valid`` only those
+        valid), the network and the camera: ``hamer_params`` (B, 2, 109,
+        the regressed 6D pose, betas and crop camera), ``boxes``,
         ``poses`` (B, 2, 48 axis-angle), ``betas``, ``cam`` (the left x
         offset negated) and ``cam_trans``, the frame's translation."""
         b = image.shape[0]
         with stage("regress.crop"):
-            boxes = boxes_from_joints(pj2d, self.cfg.input_size, self.dims)
+            boxes = boxes_from_joints(joints, self.dims, valid)
             x = crops(image, boxes, detected, self.dims)
         with stage("regress.net"):
             p = self.net(x).reshape(b, 2, hamer_model.N_PARAMS)

@@ -60,6 +60,7 @@ from acr_tpu_torch.parallel.mesh import (
 )
 from acr_tpu_torch.parser.parse import parse_outputs
 from acr_tpu_torch.pipeline import graphs
+from acr_tpu_torch.pipeline.preprocess import img_preprocess
 from acr_tpu_torch.pipeline.project import (
     estimate_translation_ls,
     kp2d_to_org_image,
@@ -119,6 +120,21 @@ def apply_mano(mano, poses, betas, center_idx, add_mean=True):
                                   add_mean=add_mean)
     return mano_forward(mano, poses, betas, center_idx=center_idx,
                         add_mean=add_mean)
+
+
+def load_manos(cfg: Config, device: torch.device):
+    """The left and right MANO assets on ``device`` and their faces (2,
+    1538, 3). ``use_pallas_mano`` 'on' always takes the fused kernel,
+    'auto' from ``PALLAS_MANO_MIN_BATCH`` hands per call (on the CPU the
+    fused path runs the kernel's plain version)."""
+    mano_l, faces_l = load_mano_model(cfg.mano_model_path, "left", device=device)
+    mano_r, faces_r = load_mano_model(cfg.mano_model_path, "right", device=device)
+    if cfg.use_pallas_mano == "on":
+        mano_l, mano_r = build_kernel_data(mano_l), build_kernel_data(mano_r)
+    elif cfg.use_pallas_mano == "auto":
+        mano_l = ManoAuto(mano_l, build_kernel_data(mano_l))
+        mano_r = ManoAuto(mano_r, build_kernel_data(mano_r))
+    return mano_l, mano_r, np.stack([faces_l, faces_r])
 
 
 def _mano_projection_tail(mano_l, mano_r, poses, betas, cam, offsets,
@@ -264,24 +280,11 @@ class ACRPipeline:
             # frames; .calibrate(frames) recalibrates from the float weights
             self._float_params = params
             self.calibrate()
-        self.mano_l, faces_l = load_mano_model(cfg.mano_model_path, "left",
-                                               device=self.device)
-        self.mano_r, faces_r = load_mano_model(cfg.mano_model_path, "right",
-                                               device=self.device)
-        self.faces = np.stack([faces_l, faces_r])      # (2, 1538, 3)
+        self.mano_l, self.mano_r, self.faces = load_manos(cfg, self.device)
         # the mesh tail that ``refine`` runs: ACR's (None), or another
         # architecture's that an app sets, tail(poses, betas, cam, offsets)
         # -> the outputs of ``mano_refine_fn``, ``cam`` its own camera
         self.tail: Optional[Callable[..., Dict[str, torch.Tensor]]] = None
-        # 'on' always takes the fused kernel, 'auto' from
-        # PALLAS_MANO_MIN_BATCH hands per call (on the CPU the fused path
-        # runs the kernel's plain version)
-        if cfg.use_pallas_mano == "on":
-            self.mano_l = build_kernel_data(self.mano_l)
-            self.mano_r = build_kernel_data(self.mano_r)
-        elif cfg.use_pallas_mano == "auto":
-            self.mano_l = ManoAuto(self.mano_l, build_kernel_data(self.mano_l))
-            self.mano_r = ManoAuto(self.mano_r, build_kernel_data(self.mano_r))
         self._replicate()
 
     def _replicate(self) -> None:
@@ -385,6 +388,29 @@ class ACRPipeline:
         return forward_fn(rep.net, rep.mano_l, rep.mano_r, image, offsets,
                           self.cfg, return_maps=return_maps,
                           merge_params=rep.merge_params)
+
+    # what the app asks of the pipeline that its step calls first: the
+    # span around the call, the frame's host preprocess, the hands that a
+    # regressor crops (``hand_inputs`` staged, ``hands`` in its stage),
+    # the counts a readback carries and their text in the webcam log
+    span = "issue.forward"
+    preprocess = staticmethod(img_preprocess)
+
+    def hand_inputs(self, image: torch.Tensor, out: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """The network's input and ACR's 2D joints."""
+        return {"image": image, "pj2d": out["pj2d"]}
+
+    def hands(self, d: Dict[str, torch.Tensor]):
+        """``hand_inputs`` -> the image the crops sample, the joints in its
+        pixels and their validity (None: every joint)."""
+        return d["image"], (d["pj2d"] + 1.0) * (self.cfg.input_size / 2.0), None
+
+    def count(self, out: Dict) -> None:
+        """ACR's readback carries no counts."""
+
+    def counts_text(self) -> str:
+        return ""
 
     def graph_block(self, batch: int) -> Optional[str]:
         """Why a step of ``batch`` frames runs eagerly (``cpu``, ``mesh`` or

@@ -13,6 +13,12 @@ of the JAX package); ``tests/test_torch_port_host.py`` holds it equal to
 the original. One change: a frame already square at ``input_size`` skips
 the cubic resize, which is an identity there, so the port's image path
 needs neither cv2 nor PIL for such frames.
+
+``vitdet_preprocess`` is the port's own, the host half of ViTDet's input
+(``detector='vitdet'``): the RGB frame as it is, which the device resizes
+to fill an ``input_size`` square and pads at the bottom and right
+(``pipeline.vitdet.resize_input``, detectron2's ``ResizeShortestEdge``
+and ``square_pad``), and the offsets of that square in the frame.
 """
 
 from __future__ import annotations
@@ -70,6 +76,34 @@ def resize_uint8_cubic(image: np.ndarray, size: int) -> np.ndarray:
     from PIL import Image                            # pragma: no cover
     return np.asarray(Image.fromarray(image).resize((size, size),
                                                     Image.BICUBIC))
+
+
+def resized_shape(h: int, w: int, size: int) -> Tuple[int, int]:
+    """detectron2's ``ResizeShortestEdge(size, max_size=size)``: the
+    frame's (h, w) scaled so that its longer side is ``size``."""
+    scale = size * 1.0 / min(h, w)
+    newh, neww = (size * 1.0, scale * w) if h < w else (scale * h, size * 1.0)
+    if max(newh, neww) > size:
+        scale = size * 1.0 / max(newh, neww)
+        newh, neww = newh * scale, neww * scale
+    return int(newh + 0.5), int(neww + 0.5)
+
+
+def vitdet_preprocess(bgr_frame: np.ndarray, imgpath: Optional[str] = None,
+                      input_size: int = 1024) -> Dict[str, np.ndarray]:
+    """BGR frame -> ViTDet's host input: the RGB frame (1, H, W, 3) uint8,
+    and offsets (1, 10) whose square, the frame padded at the bottom and
+    right to its longer side, the resized input fills."""
+    h, w = bgr_frame.shape[:2]
+    side = max(h, w)
+    offsets = np.array([side, side, 0, 0, 0, 0, 0, side - w, side - h, 0],
+                       np.float32)
+    out = {"image": np.ascontiguousarray(bgr_frame[None, :, :, ::-1]),
+           "offsets": offsets[None], "data_set": "internet"}
+    if imgpath is not None:
+        out["imgpath"] = imgpath
+        out["name"] = imgpath.split("/")[-1]
+    return out
 
 
 def img_preprocess(bgr_frame: np.ndarray, imgpath: Optional[str] = None,

@@ -166,9 +166,8 @@ class StreamingLoop:
 
     def run(self, source: FrameSource) -> int:
         """Pipelined loop; returns the number of frames processed."""
-        from acr_tpu_torch.pipeline.preprocess import img_preprocess
-
         app, cfg, timer = self.app, self.app.cfg, self.app.timer
+        preprocess = app.pipeline.preprocess
         rule = DrainRule()
         inflight = None   # (t_start, frame id, frame, meta, device outputs, issue s)
         count = 0
@@ -182,8 +181,7 @@ class StreamingLoop:
             t0 = time.perf_counter()
             drain = rule.read(blocked)
             with timer.stage("stream.preprocess", count):
-                meta = img_preprocess(frame, str(count),
-                                      input_size=cfg.input_size)
+                meta = preprocess(frame, str(count), input_size=cfg.input_size)
             t_issue = time.perf_counter()
             with timer.stage("stream.issue", count):
                 out = app.stream_step(meta)

@@ -278,6 +278,84 @@ def mano_bound(batch):
     return bound(*fused_work(batch), fma=True)
 
 
+def phase_kernels_detect():
+    """B5 and B6, the detector's NMS and ROIAlignV2 (csrc/detect.cu),
+    against their plain versions at ViTDet's shapes: the RPN's 5 levels and
+    the box head's 80 classes of 1000 boxes, 1000 RoIs over p2-p5 of a
+    1024 px input with boxes of every level; each timed by CUDA events
+    (``ms``), in a graph (``device_ms``) and against its least time. Then
+    three webcam frames through ``--architecture hamer --detector vitdet``
+    at the published widths on seeded stand-in weights: the detect stage
+    captures its graph and every frame launches both kernels."""
+    import numpy as np
+    import torch
+    from acr_tpu_torch.ops import detect
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, s, thresh in (("nms_rpn", 5, 0.7), ("nms", 80, 0.5)):
+        xy = torch.rand((s, 1000, 2), generator=g, device=dev) * 900
+        boxes = torch.cat([xy, xy + torch.rand((s, 1000, 2), generator=g,
+                                               device=dev) * 200 + 1], -1)
+        valid = torch.rand((s, 1000), generator=g, device=dev) < 0.9
+        err = int((detect.nms(boxes, valid, thresh)
+                   != detect.nms_plain(boxes, valid, thresh)).sum())
+        fn = lambda b=boxes, v=valid, t=thresh: detect.nms(b, v, t)
+        out[name] = {"err": err, "ms": cuda_ms(fn, iters=20), "device_ms": graph_ms(fn),
+                     "plain_ms": cuda_ms(lambda b=boxes, v=valid, t=thresh:
+                                         detect.nms_plain(b, v, t), iters=2, reps=3)[0],
+                     "bound": bound(*detect.nms_work(s, 1000))}
+    feats = [torch.randn((256, 256 >> lv, 256 >> lv), generator=g, device=dev)
+             for lv in range(4)]
+    xy = torch.rand((1000, 2), generator=g, device=dev) * 1000
+    rois = torch.cat([xy, xy + torch.rand((1000, 2), generator=g, device=dev) ** 3
+                      * 1000 + 0.5], -1)
+    lv = detect.assign_levels(rois)
+    fn = lambda: detect.roi_align(feats, rois, lv)
+    err = float((fn() - detect.roi_align_plain(feats, rois, lv, 7, 0.25)).abs().max())
+    out["roi_align"] = {"err": err, "ms": cuda_ms(fn, iters=20), "device_ms": graph_ms(fn),
+                        "plain_ms": cuda_ms(lambda: detect.roi_align_plain(
+                            feats, rois, lv, 7, 0.25), iters=1, reps=3)[0],
+                        "bound": bound(*detect.roi_align_work(1000, 256))}
+    for name, r in out.items():
+        say("kernels", f"{name} vs plain: {r['err']} differing; {ms_text(r['ms'])}; "
+            f"device {r['device_ms']:.4f} ms; plain {r['plain_ms']:.2f} ms; "
+            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    differ = {name: r["err"] for name, r in out.items() if r["err"] != 0}
+    if differ:
+        raise AssertionError(f"detect kernels differ from their plain versions: {differ}")
+    from acr_tpu_torch.config import Config
+    from acr_tpu_torch.pipeline import graphs
+    from acr_tpu_torch.pipeline import vitdet as pv
+    from acr_tpu_torch.pipeline.app import ACRApp
+    from acr_tpu_torch.pipeline.streaming import StreamingLoop
+    cfg = Config(configs_yml="", architecture="hamer", detector="vitdet",
+                 input_size=1024, demo_mode="webcam", temporal_optimization=True,
+                 save_visualization_on_img=False)
+    before, counts = dict(detect.LAUNCHES), dict(graphs.COUNTS)
+    app = ACRApp(cfg, device="cuda")
+    frame = (np.random.RandomState(0).rand(480, 640, 3) * 255).astype(np.uint8)
+
+    class Frames:
+        def __init__(self):
+            self.left = 3
+
+        def read(self):
+            self.left -= 1
+            return frame if self.left >= 0 else None
+    StreamingLoop(app).run(Frames())
+    torch.cuda.synchronize()
+    launches = {k: detect.LAUNCHES[k] - before.get(k, 0) for k in ("nms", "roi_align")}
+    say("kernels", f"vitdet stream, 3 frames at 1024 px: launches {launches}; "
+        f"detect graph {graphs.COUNTS['detect.capture'] - counts.get('detect.capture', 0)} "
+        f"captures, {graphs.COUNTS['detect.replay'] - counts.get('detect.replay', 0)} "
+        f"replays; detections {dict(pv.DETECT)}")
+    assert launches == {"nms": 6, "roi_align": 9}, launches
+    del app
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def phase_env():
     import torch
     say("env", f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -2912,6 +2990,7 @@ def main():
     kin = phase_kernels()
     banded_err, serpentine_flat_err = phase_kernels_banded()
     mano_err = phase_kernels_mano()
+    det_k, det_launches = phase_kernels_detect()
     out_dir = os.path.join(ROOT, "build", "chip_smoke_out")
     launches, apps, frames = phase_main(out_dir)
     flat_hi = phase_band_overflow(card, os.path.join(out_dir, "band"))
@@ -3026,7 +3105,19 @@ def main():
     for e in (binned, banded, mano):
         e["paths"]["bench"] = bench_launches[e["name"]]
     mano["paths"]["bench fp32 b8"] = bench_b8
-    print(json.dumps({"kernels": [flat, binned, banded, mano]}), flush=True)
+    # B5 and B6 at ViTDet's shapes, and their launches on three frames of
+    # the vitdet webcam path
+    det = []
+    for name in ("nms", "roi_align"):
+        r = det_k[name]
+        det.append({"name": name, "route": "cuda", "source": "acr_tpu_torch/csrc/detect.cu",
+                    "replaces": None, "launches": det_launches[name],
+                    "max_abs_err": r["err"], "ms": r["ms"], "device_ms": r["device_ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                    "bound_by": r["bound"][1], "library_ms": None})
+    det[0]["rpn_shape"] = {k: det_k["nms_rpn"][k] for k in ("ms", "device_ms", "plain_ms")}
+    det[0]["rpn_shape"]["bound_ms"] = det_k["nms_rpn"]["bound"][0]
+    print(json.dumps({"kernels": [flat, binned, banded, mano] + det}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

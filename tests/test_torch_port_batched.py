@@ -25,8 +25,8 @@ from acr_tpu.io.params import unflatten_params
 from acr_tpu.pipeline.app import ACRApp as JaxACRApp
 from acr_tpu_torch.config import Config
 from acr_tpu_torch.io.params import from_flax
-from acr_tpu_torch.pipeline import app as app_mod
 from acr_tpu_torch.pipeline.app import ACRApp, probe_reduce
+from acr_tpu_torch.pipeline.infer import ACRPipeline
 from acr_tpu_torch.pipeline.preprocess import img_preprocess
 from test_torch_port_app import MANO_DIR, flat  # noqa: F401 (fixture)
 from test_torch_port_stream import assert_same_results, state_leaves
@@ -111,7 +111,7 @@ def test_each_frame_preprocessed_once(flat, tmp_path, frames_dir,
         calls.append(path)
         return img_preprocess(frame, path, **kw)
 
-    monkeypatch.setattr(app_mod, "img_preprocess", counted)
+    monkeypatch.setattr(ACRPipeline, "preprocess", staticmethod(counted))
     app = _port(flat, tmp_path, "once", frames_dir)
     assert len(app.run()) == N_FRAMES
     assert len(calls) == N_FRAMES and len(set(calls)) == N_FRAMES
@@ -127,7 +127,7 @@ def test_producer_error_surfaces_in_consumer(flat, tmp_path, frames_dir,
             raise OSError(f"cannot decode {path}")
         return img_preprocess(frame, path, **kw)
 
-    monkeypatch.setattr(app_mod, "img_preprocess", failing)
+    monkeypatch.setattr(ACRPipeline, "preprocess", staticmethod(failing))
     app = _port(flat, tmp_path, "err", frames_dir)
     with pytest.raises(OSError, match="cannot decode"):
         app.run()

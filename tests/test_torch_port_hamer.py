@@ -153,7 +153,7 @@ def test_boxes_and_crops_match_reference():
     img = torch.as_tensor((np.random.RandomState(0).rand(1, SIZE, SIZE, 3)
                            * 255).astype(np.uint8))
     pj = _joints(1)
-    boxes = ph.boxes_from_joints(pj, SIZE, D)
+    boxes = ph.boxes_from_joints((pj + 1.0) * (SIZE / 2.0), D)
     want = ref.boxes(((pj.double() + 1) * SIZE / 2).numpy(), RD)
     np.testing.assert_allclose(boxes, want, rtol=0, atol=BOX_ATOL)
     factor = boxes[0, :, 2] / D.crop / 2
@@ -282,7 +282,8 @@ def test_stream_step_matches_reference(small, temporal):
 def _regressed(app, meta, det):
     """The app's regressed poses (axis-angle) of one frame, before OneEuro."""
     res = app.regressor.regress(torch.as_tensor(meta["image"]),
-                                det["pj2d"], det["detection_flag"])
+                                (det["pj2d"] + 1.0) * (app.cfg.input_size / 2.0),
+                                None, det["detection_flag"])
     return res["poses"][0]
 
 

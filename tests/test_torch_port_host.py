@@ -31,7 +31,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _shared(fields):
     """A Config's fields without the port's own (``config.PORT_ONLY``)."""
-    assert tconfig.PORT_ONLY == ("architecture",)
+    assert tconfig.PORT_ONLY == ("architecture", "detector")
     return {k: v for k, v in fields.items() if k not in tconfig.PORT_ONLY}
 
 
@@ -43,6 +43,7 @@ def test_config_fields_and_defaults_equal():
     assert _shared(dataclasses.asdict(tconfig.Config())) == \
         dataclasses.asdict(jconfig.Config())
     assert tconfig.Config().architecture == "acr"
+    assert tconfig.Config().detector == "acr"
 
 
 @pytest.mark.parametrize("argv", [
