@@ -32,7 +32,12 @@ weights with both hands forced detected, 512 px input:
   loop delivers each frame in its own turn once ``DrainRule`` has its run
   of reads, each such readback waits for its frame's step, and every
   output, the OneEuro state included, equals an unpaced loop's (one frame
-  in flight, never drained) bit for bit.
+  in flight, never drained) bit for bit;
+- over 40 frames of HaMeR at the small test widths from a source that
+  never blocks, each step made device-bound by 20 ms of device sleep, the
+  loop paces its reads once ``PaceRule`` has its entry turns, and every
+  output, the OneEuro state included, equals the same loop's with the
+  rule's sleep held at 0 bit for bit.
 """
 
 import os
@@ -43,6 +48,7 @@ import pytest
 import torch
 
 from acr_tpu_torch.config import Config
+from acr_tpu_torch.models import hamer as hm
 from acr_tpu_torch.models import mano as tm
 from acr_tpu_torch.ops import mano_kernel as mk
 from acr_tpu_torch.pipeline import graphs
@@ -50,9 +56,11 @@ from acr_tpu_torch.pipeline import infer
 from acr_tpu_torch.pipeline.app import READBACK, ACRApp, StreamOutputs
 from acr_tpu_torch.pipeline.preprocess import img_preprocess
 from acr_tpu_torch.pipeline import streaming
-from acr_tpu_torch.pipeline.streaming import (DrainRule, StreamingLoop,
-                                              SyntheticSource)
+from acr_tpu_torch.pipeline.streaming import (DrainRule, PaceRule,
+                                              StreamingLoop, SyntheticSource)
 from acr_tpu_torch.viz import raster_cuda as rc
+from test_torch_port_hamer import D as HAMER_DIMS, SIZE as HAMER_SIZE
+from test_torch_port_hamer import app_params as hamer_params
 from test_torch_port_precision_cuda import _weights
 
 MANO_DIR = os.path.join(os.path.dirname(__file__), "..", "model_data", "mano")
@@ -477,7 +485,7 @@ def test_paced_tracking_drains(tmp_path):
 
     app, got, readbacks, turns = run("paced", PacedFrames(frames))
     ref, want, _, ref_turns = run("inflight", Frames(frames))
-    assert ref_turns == {"inflight": n}
+    assert ref_turns["inflight"] == n and "drained" not in ref_turns
     assert turns["inflight"] >= DrainRule.ENTER + 1, turns
     assert turns["drained"] + turns["inflight"] == n
     assert turns["drained"] >= n // 2, turns
@@ -487,3 +495,43 @@ def test_paced_tracking_drains(tmp_path):
     for g, w in zip(_state(app), _state(ref)):
         assert torch.equal(g, w)
 
+
+# --- a device-bound step reads just before the device frees up ---
+
+@pytest.mark.cuda
+def test_device_bound_hamer_stream_paces(tmp_path, monkeypatch):
+    _need_card()
+    monkeypatch.setattr(hm, "DIMS", HAMER_DIMS)
+    n = 40
+    frames = SyntheticSource(n, 96, 128, seed=7).frames
+    cfg = Config(configs_yml="", input_size=HAMER_SIZE,
+                 render_size=HAMER_SIZE, mano_model_path=MANO_DIR,
+                 centermap_conf_thresh=-1e9, architecture="hamer",
+                 demo_mode="webcam", temporal_optimization=True,
+                 save_visualization_on_img=False,
+                 output_dir=str(tmp_path / "hamer") + "/")
+
+    def run():
+        app = ACRApp(cfg, params=hamer_params(), device="cuda")
+        _run(app, frames[:3])                       # warm-up, capture
+        step = app._frame_step
+
+        def device_bound(meta, **kw):
+            torch.cuda._sleep(40_000_000)           # about 20 ms at 2 GHz
+            return step(meta, **kw)
+        app._frame_step = device_bound
+        torch.cuda.synchronize()
+        streaming.TURNS.clear()
+        outs = _run(app, frames)
+        return app, outs, dict(streaming.TURNS)
+
+    app, got, turns = run()
+    monkeypatch.setattr(PaceRule, "sleep_s", lambda self, now: 0.0)
+    ref, want, ref_turns = run()
+    assert ref_turns == {"inflight": n}
+    assert turns["inflight"] == n and "drained" not in turns
+    assert turns["paced"] >= n // 2, turns
+    assert turns.get("late", 0) <= turns["paced"] // 4, turns
+    assert_same_steps(got, want)
+    for g, w in zip(_state(app), _state(ref)):
+        assert torch.equal(g, w)

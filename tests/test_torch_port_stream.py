@@ -23,11 +23,26 @@ Through the loop, a source whose read sleeps 20 ms drains once the rule
 has its run of reads (each drained frame delivered before the next read)
 and an unpaced one never does; either way the outputs and the OneEuro
 state equal the in-flight loop's bit for bit, and JAX's loop as above.
+
+When a frame in flight lets the next frame be read (``PaceRule``): on a
+virtual clock, the rule sleeps only after ``ENTER`` turns that each
+waited beyond the margin, never more than the last of those waits less
+the margin, and never where the host sets the pace, the waits stay under
+the margin or the step has no event; after a late turn it paces from the
+late issue's start and is not late itself; ``TURNS`` counts the paced and
+late turns. Through the loop, a
+stub device whose fake events pass 60 ms apart and a source that returns
+the newest frame of a fast clock: paced, a frame's read-to-delivery time
+falls by at least 40 % against the loop with the rule's sleep held at 0,
+as many frames a second are delivered, in the order read, each with its
+own frame's outputs. A source that blocks past the step reads the same
+frames in the same order either way.
 """
 
 import os
 import pickle
 import time
+import types
 
 import numpy as np
 import pytest
@@ -44,12 +59,13 @@ from acr_tpu.pipeline.streaming import SyntheticSource as JaxSyntheticSource
 from acr_tpu_torch.config import Config
 from acr_tpu_torch.io.params import from_flax
 from acr_tpu_torch.pipeline import app as app_mod
-from acr_tpu_torch.pipeline.app import ACRApp, readback
+from acr_tpu_torch.pipeline.app import ACRApp, StreamOutputs, readback
 from acr_tpu_torch.pipeline.preprocess import img_preprocess
 from acr_tpu_torch.pipeline.results import reorganize_results
 from acr_tpu_torch.pipeline import streaming
-from acr_tpu_torch.pipeline.streaming import (DrainRule, StreamingLoop,
-                                              SyntheticSource)
+from acr_tpu_torch.pipeline.streaming import (DrainRule, PaceRule,
+                                              StreamingLoop, SyntheticSource)
+from acr_tpu_torch.utils.meters import SpanTimer
 from test_torch_port_app import MANO_DIR, flat  # noqa: F401 (fixture)
 
 torch.set_num_threads(2)
@@ -287,6 +303,22 @@ class Logged:
         return frame
 
 
+def drain_order(n, drained):
+    """The log of ``n`` turns whose last ``drained`` drained: each turn
+    reads its frame, then delivers the frame before it, or, drained, its
+    own."""
+    first, order = n - drained, []
+    for k in range(n):
+        order.append(("read", k))
+        if 0 < k <= first:
+            order.append(("deliver", k - 1))
+        if k >= first:
+            order.append(("deliver", k))
+    if first == n:
+        order.append(("deliver", n - 1))
+    return order
+
+
 @pytest.mark.parametrize("paced", [True, False], ids=["paced", "unpaced"])
 def test_loop_drains_where_the_read_blocks(flat, tmp_path, paced):
     n = ENTER + 5
@@ -311,18 +343,7 @@ def test_loop_drains_where_the_read_blocks(flat, tmp_path, paced):
     drained = n - ENTER - 1 if paced else 0
     assert turns == ({"drained": drained, "inflight": n - drained}
                      if drained else {"inflight": n})
-    # each turn reads its frame, then delivers the frame before it, or,
-    # drained, its own
-    first, order = n - drained, []
-    for k in range(n):
-        order.append(("read", k))
-        if 0 < k <= first:
-            order.append(("deliver", k - 1))
-        if k >= first:
-            order.append(("deliver", k))
-    if first == n:
-        order.append(("deliver", n - 1))
-    assert log == order
+    assert log == drain_order(n, drained)
     # the in-flight loop's outputs and state, bit for bit
     ref_app, want = run("inflight", SyntheticSource(n), [])
     for (g_img, g_out), (w_img, w_out) in zip(got, want):
@@ -348,6 +369,252 @@ def test_loop_drains_where_the_read_blocks(flat, tmp_path, paced):
     for g, w in zip(state_leaves(app.filter_state),
                     jax.tree.leaves(japp.filter_state)):
         np.testing.assert_allclose(g, np.asarray(w), atol=1e-5)
+
+
+# --- when a frame in flight lets the next frame be read ---
+
+PACE_ENTER = PaceRule.ENTER
+
+
+def _lead_jitter(i):
+    return 0.2 * MS * (i % 4)
+
+
+def _device_jitter(i):
+    return 0.5 * MS * (i % 3)
+
+
+# per case: turns, device ms a step, lead ms, extra issue ms by turn,
+# whether the step has an event
+PACE_CASES = {
+    # the device sets the pace: paced once ENTER turns waited
+    "device_bound": (40, 60.0, 10.0, {}, True),
+    # an issue far over its quantile: the paced turn is late
+    "late": (40, 60.0, 10.0, {20: 20.0, 31: 20.0}, True),
+    # the host sets the pace: the frame in flight is done at every readback
+    "host_bound": (40, 8.0, 10.0, {}, True),
+    # the waits stay under the margin (leads spread by 4 ms)
+    "under_margin": (40, 12.0, 10.0, {i: 4.0 * (i % 2) for i in range(40)},
+                     True),
+    # a synchronous step: no event, no wait
+    "no_event": (40, 60.0, 10.0, {}, False),
+}
+ISSUE_MS = 2.0
+
+
+def simulate_pacing(turns, device_ms, lead_ms, extra, event):
+    """``PaceRule`` driven on a virtual clock: each turn sleeps what the
+    rule says, then reads and preprocesses, then issues for the last
+    ``ISSUE_MS`` of its lead and what ``extra`` adds; the frame's step
+    starts when the device is free and the step's front is in, just after
+    the issue began. The readback waits for the frame in flight, then
+    delivers (0.5 ms). Returns per turn (sleep, margin, the last ENTER
+    slacks, wait, late)."""
+    streaming.TURNS.clear()
+    rule, now, free, prev, log = PaceRule(), 0.0, 0.0, None, []
+    for i in range(turns):
+        margin = rule.margin() if len(rule.devices) >= 2 else 0.0
+        recent = list(rule.slacks)[-PACE_ENTER:]
+        slept = rule.sleep_s(now) if prev is not None else 0.0
+        start = now + slept
+        issue = start + (lead_ms - ISSUE_MS) * MS + _lead_jitter(i)
+        issued = issue + (ISSUE_MS + extra.get(i, 0.0)) * MS
+        device = device_ms * MS + _device_jitter(i)
+        free = max(free, issue + 0.1 * MS) + device
+        waited = 0.0
+        if prev is not None:
+            done_at, prev_device = prev
+            if event and done_at > issued:
+                waited = done_at - issued
+            rule.done(issued - start, waited, prev_device if event else None,
+                      done_at if waited else None, issue)
+        log.append((slept, margin, recent, waited,
+                    prev is not None and slept > 0 and not waited))
+        now = issued + waited + 0.5 * MS
+        prev = (free, device)
+    return log
+
+
+@pytest.mark.parametrize("case", PACE_CASES)
+def test_pace_rule_sleeps_while_the_device_is_behind(case):
+    turns, device_ms, lead_ms, extra, event = PACE_CASES[case]
+    log = simulate_pacing(turns, device_ms, lead_ms, extra, event)
+    paced = [i for i, (slept, *_) in enumerate(log) if slept]
+    late = [i for i, (*_, was_late) in enumerate(log) if was_late]
+    for i, (slept, margin, recent, _, _) in enumerate(log):
+        if slept:
+            # only after ENTER turns that each waited beyond the margin,
+            # and never beyond the last of those waits less the margin
+            assert len(recent) == PACE_ENTER and min(recent) > margin, i
+            assert slept <= recent[-1] - margin + 1e-12, i
+    assert dict(streaming.TURNS) == {
+        k: v for k, v in (("paced", len(paced)), ("late", len(late))) if v}
+    if case in ("host_bound", "under_margin", "no_event"):
+        assert not paced
+        return
+    # after a late turn the next paces from the late issue's start, the
+    # earliest the frame in flight can have started: it is not late
+    for i in late:
+        assert log[i + 1][0] and not log[i + 1][4], i + 1
+    assert late == sorted(extra)
+    assert len(paced) == turns - PACE_ENTER - 1, paced
+    # paced, the frame in flight's wait falls to under a tenth of the
+    # step's (until a window holds two late leads)
+    waits = [w for (slept, _, _, w, _) in log if slept]
+    assert (max(waits) if not extra else np.median(waits)) \
+        < 0.1 * device_ms * MS, waits
+
+
+class Clocked:
+    """A fake CUDA event that passes at host time ``t``; as a CUDA event's
+    does, its ``synchronize`` spins for the last of its wait."""
+
+    def __init__(self, t):
+        self.t = t
+
+    def query(self):
+        return time.perf_counter() >= self.t
+
+    def synchronize(self):
+        time.sleep(max(0.0, self.t - time.perf_counter() - 2 * MS))
+        while not self.query():
+            pass
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+class StubDevice:
+    """``ACRApp``'s stream interface over a fake device whose step takes
+    ``step_s``: a frame's step starts when the step before it has ended,
+    or at its issue, and its ``copied`` event passes ``step_s`` later.
+    Its outputs are a function of the frame; the readback is the app's own
+    ``unpack_stream``."""
+
+    unpack_stream = ACRApp.unpack_stream
+    _consume_overflow_probe = ACRApp._consume_overflow_probe
+
+    def __init__(self, step_s):
+        self.step_s, self.free = step_s, 0.0
+        self.cfg = types.SimpleNamespace(input_size=2)
+        self.timer, self.visualizer = SpanTimer(), None
+        self.pipeline = self
+
+    def preprocess(self, frame, name, input_size):
+        return {"image": frame}
+
+    def count(self, out):
+        pass
+
+    def stream_step(self, meta):
+        frame = meta["image"]
+        out = StreamOutputs(
+            detection_flag=torch.ones(2, dtype=torch.bool),
+            value=torch.from_numpy(frame.astype(np.float32) * 0.5 + 1.0))
+        out.host = {k: v.clone() for k, v in out.items()}
+        start = max(self.free, time.perf_counter())
+        self.free = start + self.step_s
+        out.started, out.copied = Clocked(start), Clocked(self.free)
+        return out
+
+
+class FastCamera:
+    """The newest capture of a 1000 frames/s camera, never the same one
+    twice; capture k's frame is filled with k."""
+
+    def __init__(self, n):
+        self.n, self.t0, self.last, self.reads = n, None, -1, []
+
+    def read(self):
+        if len(self.reads) == self.n:
+            return None
+        now = time.perf_counter()
+        self.t0 = now if self.t0 is None else self.t0
+        k = max(int((now - self.t0) * 1000.0), self.last + 1)
+        time.sleep(max(0.0, self.t0 + k / 1000.0 - now))
+        self.last = k
+        self.reads.append(k)
+        return np.full((2, 3), k, dtype=np.int64)
+
+
+STEP_S = 0.06
+
+
+def _stub_run(source):
+    """The stub through ``StreamingLoop``: the frames delivered, their
+    outputs, the delivery times and each frame's read-to-delivery ms."""
+    got, at = [], []
+
+    def deliver(img, out):
+        got.append((int(img[0, 0]), out))
+        at.append(time.perf_counter())
+    loop = StreamingLoop(StubDevice(STEP_S), on_result=deliver)
+    n = loop.run(source)
+    assert n == len(got)
+    return got, at, loop.latencies
+
+
+def test_paced_loop_reads_later_and_keeps_the_rate(monkeypatch):
+    n = 24
+    streaming.TURNS.clear()
+    paced, paced_at, paced_ms = _stub_run(FastCamera(n))
+    turns = dict(streaming.TURNS)
+    monkeypatch.setattr(PaceRule, "sleep_s", lambda self, now: 0.0)
+    unpaced, unpaced_at, unpaced_ms = _stub_run(FastCamera(n))
+    assert turns["inflight"] == n and "drained" not in turns
+    # the first paced turn may be late: the unpaced turns' leads hold no
+    # sleep's wake-up
+    assert turns["paced"] >= n - PACE_ENTER - 6, turns
+    assert turns.get("late", 0) <= turns["paced"] // 4, turns
+    # after the entry turns each frame is read about one step later
+    skip = PACE_ENTER + 2
+    assert (np.median(paced_ms[skip:])
+            <= 0.6 * np.median(unpaced_ms[skip:])), (paced_ms, unpaced_ms)
+    # as many frames a second
+    rate = (n - 1) / (paced_at[-1] - paced_at[0])
+    unpaced_rate = (n - 1) / (unpaced_at[-1] - unpaced_at[0])
+    assert abs(rate / unpaced_rate - 1.0) <= 0.05, (rate, unpaced_rate)
+    # delivered in the order read, each with its own frame's outputs: those
+    # the unpaced loop gave that frame, bit for bit
+    for got in (paced, unpaced):
+        ids = [k for k, _ in got]
+        assert ids == sorted(set(ids))
+    want = dict(unpaced)
+    shared = [k for k, _ in paced if k in want]
+    for k, out in paced:
+        np.testing.assert_array_equal(
+            out["value"], np.full((2, 3), k, np.float32) * 0.5 + 1.0)
+        if k in want:
+            assert out.keys() == want[k].keys()
+            for key in out:
+                np.testing.assert_array_equal(out[key], want[k][key])
+    assert shared, "no frame read by both loops"
+
+
+class SyntheticIds(SyntheticSource):
+    """``SyntheticSource`` whose frame k is filled with k."""
+
+    def __init__(self, n):
+        self.frames = [np.full((2, 3), k, dtype=np.int64) for k in range(n)]
+        self.idx = 0
+
+
+def test_camera_paced_read_is_unpaced(monkeypatch):
+    n = PACE_ENTER + 5
+    logs = []
+    for pacing in (True, False):
+        if not pacing:
+            monkeypatch.setattr(PaceRule, "sleep_s", lambda self, now: 0.0)
+        streaming.TURNS.clear()
+        log = []
+        loop = StreamingLoop(StubDevice(STEP_S), on_result=lambda img, out:
+                             log.append(("deliver", int(img[0, 0]))))
+        assert loop.run(Logged(SyntheticIds(n), log, STEP_S + 0.02)) == n
+        assert "paced" not in streaming.TURNS, dict(streaming.TURNS)
+        logs.append(log)
+    # the read blocks past the frame in flight's step: the same frames in
+    # the same order as without pacing, drained once the rule has its run
+    assert logs[0] == logs[1] == drain_order(n, n - ENTER - 1)
 
 
 @pytest.fixture(scope="module")
